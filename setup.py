@@ -8,7 +8,10 @@ setup(
     version="0.1.0",
     description="TPU-native adaptive distributed ML framework "
                 "(KungFu capabilities, jax/XLA architecture)",
-    packages=find_packages(include=["kungfu_tpu", "kungfu_tpu.*"]),
+    packages=find_packages(include=["kungfu_tpu", "kungfu_tpu.*",
+                                    "kungfu_tpu_torch", "kungfu_tpu_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these at first use
+    package_data={"kungfu_tpu_torch.ops": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     extras_require={
@@ -25,6 +28,8 @@ setup(
             "kft-rrun = kungfu_tpu.launcher.rrun:main",
             # beyond the reference: the serving binary
             "kft-serve = kungfu_tpu.serving.__main__:main",
+            # the PyTorch/CUDA port's serving binary
+            "kft-serve-torch = kungfu_tpu_torch.serving.__main__:main",
         ],
     },
 )

@@ -1,0 +1,109 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here needs a CUDA device and skips without one (a CUDA
+kernel has no CPU mode).  The file imports no JAX, so it also runs on a
+GPU machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from kungfu_tpu_torch.models import gpt as G
+from kungfu_tpu_torch.ops import paged_attention as PA
+from kungfu_tpu_torch.serving import DecodeEngine, Request
+from kungfu_tpu_torch.serving.cache import quantize_kv
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(device, dtype, Q, quant, S=6, H=16, KVH=4, Dh=64, bs=32, MB=8,
+            seed=5):
+    """Ragged slots (one at position 0) with distinct blocks and a
+    poisoned scratch block 0 that no visible position maps to."""
+    rng = np.random.RandomState(seed)
+    N = S * MB + 1
+    pos = rng.randint(0, MB * bs, S).astype(np.int32)
+    pos[0] = 0
+    tables = np.zeros((S, MB), np.int32)
+    free = list(range(1, N))
+    rng.shuffle(free)
+    for s in range(S):
+        for b in range(min(MB, (pos[s] + Q - 1) // bs + 1)):
+            tables[s, b] = free.pop()
+    t = lambda a, dt=torch.float32: torch.from_numpy(a).to(device, dt)
+    kf = t(rng.randn(N, bs, KVH, Dh).astype(np.float32))
+    vf = t(rng.randn(N, bs, KVH, Dh).astype(np.float32))
+    kf[0] = 1e3
+    vf[0] = 1e3
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+    else:
+        k, v, ks, vs = kf.to(dtype), vf.to(dtype), None, None
+    return dict(q=t(rng.randn(S, Q, H, Dh).astype(np.float32), dtype),
+                k_pool=k, v_pool=v, tables=t(tables, torch.int32),
+                pos=t(pos, torch.int32), k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("dtype,quant,Q,H,KVH", [
+    (torch.float32, False, 1, 16, 4), (torch.bfloat16, False, 1, 16, 4),
+    (torch.bfloat16, False, 4, 16, 4), (torch.float32, True, 3, 8, 2),
+    (torch.bfloat16, True, 1, 16, 4), (torch.float32, False, 2, 4, 4)])
+def test_paged_attention_kernel_matches_plain(cuda_device, dtype, quant, Q,
+                                              H, KVH):
+    inp = _inputs(cuda_device, dtype, Q, quant, H=H, KVH=KVH)
+    before = PA.launches
+    got = PA.paged_attention_queries(**inp)
+    torch.cuda.synchronize()
+    assert PA.launches == before + 1
+    want = PA.paged_attention_queries_ref(**inp)
+    # f32: summation order only; bf16: p is rounded to bf16 before the PV
+    # product in the kernel (as in the TPU kernel), not in the plain one
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_paged_attention_kernel_rejects_bad_inputs(cuda_device):
+    inp = _inputs(cuda_device, torch.bfloat16, 1, False)
+    with pytest.raises(TypeError):
+        PA.paged_attention_queries(**dict(inp, pos=inp["pos"].long()))
+    with pytest.raises(ValueError):
+        PA.paged_attention_queries(**dict(inp, tables=inp["tables"].cpu()))
+    with pytest.raises(ValueError):
+        PA.paged_attention_queries(**dict(inp, q=inp["q"].transpose(2, 3)))
+
+
+@pytest.mark.parametrize("extra", [{}, {"speculative": 3},
+                                   {"kv_dtype": torch.int8}],
+                         ids=["chunked", "speculative", "int8"])
+def test_engine_fused_matches_gather_on_card(cuda_device, extra):
+    """In f32 the kernel and the gather path agree to summation order, so
+    greedy tokens match: chunked decode, the multi-query verify and the
+    int8 pool."""
+    cfg = G.GPTConfig(vocab_size=256, d_model=128, n_heads=8, n_kv_heads=2,
+                      n_layers=2, d_ff=256, max_seq=256, rope=True,
+                      mlp="swiglu", dtype=torch.float32)
+    params = G.init_params(torch.Generator(device=cuda_device)
+                           .manual_seed(0), cfg)
+    rng = np.random.RandomState(1)
+    reqs = [dict(uid=i, prompt=(rng.randint(0, 256, 5).tolist() * 20)[:n],
+                 max_new=12) for i, n in enumerate((3, 17, 40, 70, 9))]
+    out = {}
+    for attend in ("fused", "gather"):
+        eng = DecodeEngine(params, cfg, device=cuda_device, attend=attend,
+                           num_slots=3, block_size=8, num_blocks=64,
+                           prompt_buckets=(16, 128), decode_chunk=4,
+                           **extra)
+        before = PA.launches
+        out[attend] = eng.run([Request(**r) for r in reqs])
+        launched = PA.launches - before
+        assert (launched > 0) == (attend == "fused")
+    assert out["fused"] == out["gather"]
