@@ -16,7 +16,18 @@
    (torch.profiler: device busy share, launches, top kernels); then a
    speculative (K=3) and an int8-KV engine at 4 layers;
 4. checks that greedy tokens of an f32 full-width engine are the same
-   with the fused kernel and with the gather path.
+   with the fused kernel and with the gather path;
+5. holds the flash-attention kernels K1-K4 (forward, delta, dq, dk/dv)
+   against their plain version through autograd -- bf16 and f32, head_dim
+   64 and 128, causal and not, GQA, a ragged T, Tq != Tk, an lse
+   cotangent -- and times each at the 470m training shapes beside its
+   bound, its plain version and SDPA's forward or backward;
+6. trains the 470m GPT through kungfu_tpu_torch.benchmarks.gpt's code
+   (--preset 470m: 64 x 2048 tokens a step in 32 microbatches, bf16
+   compute, f32 AdamW masters), 1 warm-up and 2 timed steps, checking
+   that every layer of every microbatch launched K1-K4; profiles one
+   microbatch; and trains a full-width 2-layer f32 model for 2 steps with
+   the kernels and with dense attention, which must agree.
 
 Each phase prints a JSON line.  The last two lines are the kernels record
 and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; so
@@ -25,8 +36,8 @@ does a machine without a CUDA device.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -36,8 +47,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from kungfu_tpu_torch.benchmarks import gpt as BG
 from kungfu_tpu_torch.models import gpt as G
 from kungfu_tpu_torch.ops import _build
+from kungfu_tpu_torch.ops import flash_attention as FA
 from kungfu_tpu_torch.ops import paged_attention as PA
 from kungfu_tpu_torch.ops.flash_attention import _expand_kv_heads
 from kungfu_tpu_torch.serving import DecodeEngine, Request, ServingServer
@@ -58,13 +71,6 @@ ENGINE = dict(num_slots=8, block_size=32, num_blocks=512, max_len=1024,
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------- timing
@@ -361,6 +367,329 @@ def phase_fused_vs_gather(device, lengths=(5, 40, 130, 300)) -> dict:
     return {"requests": len(reqs), "tokens_equal": True}
 
 
+# ------------------------------------------------ phase 5: K1-K4 (flash)
+# the 470m training shapes: one microbatch of 2 x 2048, 16 heads, 4 KV
+# heads, head_dim 64, causal, bf16
+FLASH_470M = dict(B=2, Tq=2048, Tk=2048, H=16, KVH=4, D=64, causal=True,
+                  dtype=torch.bfloat16)
+FLASH_CASES = {
+    # name: B, Tq, Tk, H, KVH, D, causal, dtype, dlse, tol (relative to
+    # the largest reference value: bf16 rounds p and ds before products
+    # and every output once; f32 differs by summation order only)
+    "a_bf16_d64_causal_g4": (2, 512, 512, 16, 4, 64, True, "bf16", False),
+    "b_f32_d64_causal_g1": (2, 256, 256, 4, 4, 64, True, "f32", False),
+    "c_bf16_d128_full_g1": (2, 384, 384, 4, 4, 128, False, "bf16", False),
+    "d_f32_d128_causal_g4": (1, 256, 256, 8, 2, 128, True, "f32", False),
+    "e_bf16_d64_ragged1000_g4": (1, 1000, 1000, 8, 2, 64, True, "bf16",
+                                 False),
+    "f_f32_d64_tq192_tk320_g2": (2, 192, 320, 4, 2, 64, True, "f32", False),
+    "g_bf16_d128_tq320_tk200_full": (1, 320, 200, 4, 1, 128, False, "bf16",
+                                     False),
+    "h_bf16_d64_lse_dlse_g4": (2, 256, 256, 8, 2, 64, True, "bf16", True),
+    "i_f32_d128_lse_dlse_full": (1, 200, 200, 4, 4, 128, False, "f32",
+                                 True),
+}
+FLASH_TOL = {"bf16": 2e-2, "f32": 1e-4}
+# kernel -> line of the TPU kernel it replaces in
+# kungfu_tpu/ops/flash_attention.py
+FLASH_REPLACES = {"fa_fwd": 133, "fa_delta": 279, "fa_bwd_dq": 317,
+                  "fa_bwd_dkv": 344}
+_DT = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1.0)).item()
+
+
+def flash_inputs(device, B, Tq, Tk, H, KVH, D, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device=device).to(dtype)
+    return (mk(B, Tq, H, D), mk(B, Tk, KVH, D), mk(B, Tk, KVH, D),
+            mk(B, Tq, H, D), torch.randn((B, H, Tq), generator=g,
+                                         device=device))
+
+
+def phase_flash_check(device) -> dict:
+    """K1-K4 through the autograd function (forward, dq, dk, dv, lse)
+    against autograd through the plain version, same inputs, same dtype."""
+    errs = {}
+    for i, (name, (B, Tq, Tk, H, KVH, D, causal, dt, use_dlse)) in \
+            enumerate(FLASH_CASES.items()):
+        dtype, tol, g = _DT[dt], FLASH_TOL[dt], H // KVH
+        q, k, v, do, dlse = flash_inputs(device, B, Tq, Tk, H, KVH, D,
+                                         dtype, 100 + i)
+        res = {}
+        for path in ("kernel", "plain"):
+            qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+            if path == "kernel":
+                out, lse = FA.flash_attention_with_lse(qq, kk, vv, causal,
+                                                       kv_groups=g)
+            else:
+                out, lse = FA.flash_attention_ref(
+                    qq, FA._expand_kv_heads(kk, g),
+                    FA._expand_kv_heads(vv, g), causal)
+            loss = (out.float() * do.float()).sum()
+            if use_dlse:
+                loss = loss + (lse * dlse).sum()
+            loss.backward()
+            res[path] = (out.detach(), lse.detach(), qq.grad, kk.grad,
+                         vv.grad)
+        torch.cuda.synchronize()
+        case = {}
+        for key, got, want in zip(("out", "lse", "dq", "dk", "dv"),
+                                  res["kernel"], res["plain"]):
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise RuntimeError(f"flash {name} {key}: {got.dtype} "
+                                   f"{tuple(got.shape)} vs {want.dtype} "
+                                   f"{tuple(want.shape)}")
+            case[key] = _rel_err(got, want)
+        errs[name] = case
+        emit({"phase": "flash_check", "case": name, "rel_err": case,
+              "tol": tol})
+        bad = {k_: e for k_, e in case.items() if not e <= tol}
+        if bad:
+            raise RuntimeError(f"flash {name}: {bad} above {tol}")
+    return errs
+
+
+def flash_bound(kernel: str, B, Tq, Tk, H, KVH, D, causal, dtype) -> dict:
+    """Least time of one call at these shapes: each input read once and
+    each output written once over 3.35 TB/s, against the products the
+    visible (query, key) pairs need at the dtype's peak; the larger
+    bounds it."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    if causal:
+        pairs = sum(min(t + 1, Tk) for t in range(Tq))
+    else:
+        pairs = Tq * Tk
+    qb, kvb, row = B * Tq * H * D * isz, B * Tk * KVH * D * isz, B * H * Tq * 4
+    nbytes, flops = {
+        "fa_fwd": (qb + 2 * kvb + qb + row, 4 * B * H * D * pairs),
+        "fa_delta": (2 * qb + row, 2 * B * Tq * H * D),
+        "fa_bwd_dq": (2 * qb + 2 * kvb + 2 * row + qb,
+                      6 * B * H * D * pairs),
+        "fa_bwd_dkv": (2 * qb + 2 * kvb + 2 * row + 2 * kvb,
+                       8 * B * H * D * pairs),
+    }[kernel]
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def phase_flash_time(device) -> dict:
+    """K1-K4 at the 470m training shapes: each kernel against its plain
+    version on the same inputs (max abs error), timed beside its bound
+    and the plain version; SDPA's forward and backward as the library
+    yardstick (the port never calls it)."""
+    s = FLASH_470M
+    B, Tq, Tk, H, KVH, D = (s[k] for k in ("B", "Tq", "Tk", "H", "KVH",
+                                           "D"))
+    causal, dtype, g = s["causal"], s["dtype"], H // KVH
+    q, k, v, do, _ = flash_inputs(device, B, Tq, Tk, H, KVH, D, dtype, 7)
+    plain_fwd = lambda: FA.flash_attention_ref(
+        q, FA._expand_kv_heads(k, g), FA._expand_kv_heads(v, g), causal)
+    out, lse = FA.flash_forward(q, k, v, causal, g)
+    with torch.no_grad():
+        p_out, p_lse = plain_fwd()
+    delta = FA.flash_delta(out, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, causal, g)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, causal, g)
+    calls = {
+        "fa_fwd": (lambda: FA.flash_forward(q, k, v, causal, g),
+                   plain_fwd),
+        "fa_delta": (lambda: FA.flash_delta(out, do),
+                     lambda: FA._delta_plain(out, do)),
+        "fa_bwd_dq": (lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta,
+                                              causal, g),
+                      lambda: FA._dq_plain(q, k, v, do, lse, delta, causal,
+                                           g)),
+        "fa_bwd_dkv": (lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                causal, g),
+                       lambda: FA._dkv_plain(q, k, v, do, lse, delta,
+                                             causal, g)),
+    }
+    with torch.no_grad():
+        pdk, pdv = FA._dkv_plain(q, k, v, do, lse, delta, causal, g)
+        errs = {
+            "fa_fwd": max((out.float() - p_out.float()).abs().max().item(),
+                          (lse - p_lse).abs().max().item()),
+            "fa_delta": (delta - FA._delta_plain(out, do)).abs().max()
+            .item(),
+            "fa_bwd_dq": (dq.float() - FA._dq_plain(
+                q, k, v, do, lse, delta, causal, g).float()).abs().max()
+            .item(),
+            "fa_bwd_dkv": max((dk.float() - pdk.float()).abs().max().item(),
+                              (dv.float() - pdv.float()).abs().max()
+                              .item()),
+        }
+    for name, e in errs.items():
+        if not e <= 0.05:          # bf16 outputs of order 1..8: a few ulp
+            raise RuntimeError(f"{name} at the 470m shapes: max abs err {e}")
+    # the yardstick: one SDPA call forward, and its backward (dq, dk, dv
+    # together, so it stands beside K3 + K4)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    s_out = sdpa()
+    s_bwd = lambda: torch.autograd.grad(s_out, (qt, kt, vt),
+                                        do.transpose(1, 2),
+                                        retain_graph=True)
+    timer = _Timer(device)
+    recs = {}
+    with torch.no_grad():
+        for name, (kern, plain) in calls.items():
+            recs[name] = {"ms": timer(kern), "plain_ms": timer(plain),
+                          "max_abs_err": errs[name],
+                          **flash_bound(name, **FLASH_470M)}
+        recs["fa_fwd"]["library_ms"] = timer(sdpa)
+    bwd_ms = timer(s_bwd)
+    recs["fa_delta"]["library_ms"] = None
+    recs["fa_bwd_dq"]["library_ms"] = bwd_ms
+    recs["fa_bwd_dkv"]["library_ms"] = bwd_ms
+    for name, rec in recs.items():
+        emit({"phase": "flash_time", "kernel": name, **rec,
+              "tflops": rec["flops"] / rec["ms"] / 1e9,
+              "library": ("sdpa backward (dq, dk, dv in one call)"
+                          if name in ("fa_bwd_dq", "fa_bwd_dkv") else
+                          "sdpa forward" if name == "fa_fwd" else None)})
+    return recs
+
+# ----------------------------------------------- phase 6: train the 470m
+def _reset_flash_counts() -> None:
+    for name in FA.launches:
+        FA.launches[name] = 0
+
+
+def phase_train_470m(device) -> dict:
+    """The main training path: ``python -m kungfu_tpu_torch.benchmarks.gpt
+    --preset 470m`` on the card (64 x 2048 tokens a step in 32
+    microbatches, synchronous-SGD AdamW, bf16 compute over f32 masters),
+    1 warm-up step and 2 timed steps, through the benchmark's own code.
+    Every layer of every microbatch must have launched K1-K4."""
+    args = BG.parse_args(["--preset", "470m", "--warmup-steps", "1",
+                          "--steps", "2", "--device", "cuda"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with BG.solo_group(device):
+        _reset_flash_counts()             # counts from the main path only
+        out = BG.train(args, device)
+        counts = dict(FA.launches)
+    steps = args.warmup_steps + args.steps
+    need = args.n_layers * args.accum * steps
+    short = {k: n for k, n in counts.items() if n < need}
+    if short:
+        raise RuntimeError(f"flash kernels launched {short} times, the "
+                           f"470m run needed {need} each ({args.n_layers} "
+                           f"layers x {args.accum} microbatches x {steps} "
+                           f"steps)")
+    if not all(math.isfinite(x) for x in out["step_losses"]):
+        raise RuntimeError(f"non-finite loss: {out['step_losses']}")
+    return {"tokens_per_s": out["value"],
+            "model_tflops_per_s": out["model_tflops_per_sec"],
+            "mfu": out["model_tflops_per_sec"] * 1e12 / BF16_FLOPS,
+            "step_losses": out["step_losses"],
+            "step_seconds": out["step_seconds"],
+            "params": out["params"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts, "launches_needed": need,
+            "json_line": {k: out[k] for k in (
+                "metric", "value", "unit", "params",
+                "model_tflops_per_sec", "loss", "backend", "device")}}
+
+
+def phase_train_profile_470m(device) -> dict:
+    """Where a 470m microbatch's time goes: one forward + backward of the
+    training loss (2 x 2048 tokens, bf16 compute copy) under
+    torch.profiler.  Device busy share = summed kernel time / wall time
+    (one stream)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from kungfu_tpu_torch.training import _cast_params
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+    args = BG.parse_args(["--preset", "470m", "--device", "cuda"])
+    cfg = BG.make_config(args)
+    params = _cast_params(G.init_params(
+        torch.Generator(device=device).manual_seed(0), cfg), cfg.dtype)
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss_fn = BG.make_loss_fn(args, cfg)
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, args.seq))
+                            ).to(device=device, dtype=torch.int32)
+    batch = (toks, torch.roll(toks, -1, dims=1))
+
+    def micro():
+        return torch.autograd.grad(loss_fn(params, batch), leaves)
+
+    micro()                                            # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        micro()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kernels[ev.key] = (kernels.get(ev.key, (0, 0))[0]
+                               + ev.self_device_time_total,
+                               kernels.get(ev.key, (0, 0))[1] + ev.count)
+    busy_us = sum(v[0] for v in kernels.values())
+    flash = {name: sum(v[0] for k, v in kernels.items()
+                       if f"{name}<" in k) / 1e3
+             for name in FA.launches}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "launches": sum(v[1] for v in kernels.values()),
+            "flash_ms": flash,
+            "top_kernels_ms": [[k[:90], v[0] / 1e3, v[1]] for k, v in top]}
+
+
+def phase_train_flash_vs_dense_f32_2l(device) -> dict:
+    """A full-width 2-layer f32 470m trained for 2 steps (8 x 2048 tokens,
+    microbatches of 2 x 2048) through the kernels and through the dense
+    oracle, from the same seed.  Losses agree to 1e-4 relative (f32
+    summation order).  Parameters: AdamW's first steps move each weight
+    by about +-lr whatever the gradient's size, so a gradient within
+    rounding of 0 may flip its step: at most 2 x lr x steps apart, and
+    all but 1e-4 of the weights within 1e-5."""
+    out = {}
+    for attn in ("flash", "dense"):
+        args = BG.parse_args(["--preset", "470m", "--n-layers", "2",
+                              "--f32", "--batch", "8", "--accum", "4",
+                              "--warmup-steps", "0", "--steps", "2",
+                              "--attn", attn, "--device", "cuda"])
+        with BG.solo_group(device):
+            before = dict(FA.launches)
+            out[attn] = BG.train(args, device)
+            out[attn]["fa_fwd"] = FA.launches["fa_fwd"] - before["fa_fwd"]
+    if out["flash"]["fa_fwd"] == 0 or out["dense"]["fa_fwd"] != 0:
+        raise RuntimeError("flash/dense runs took the wrong attention")
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+    lf, ld = out["flash"]["step_losses"], out["dense"]["step_losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lf, ld))
+    diffs = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(
+        tree_leaves(out["flash"]["params_tree"]),
+        tree_leaves(out["dense"]["params_tree"]))])
+    max_diff = diffs.max().item()
+    off = (diffs > 1e-5).float().mean().item()
+    bound = 2 * 3e-4 * 2
+    if not (loss_rel <= 1e-4 and max_diff <= bound and off <= 1e-4):
+        raise RuntimeError(f"flash vs dense: loss rel {loss_rel}, param "
+                           f"max diff {max_diff} (bound {bound}), share "
+                           f"above 1e-5 {off}")
+    return {"losses_flash": lf, "losses_dense": ld, "loss_rel_diff":
+            loss_rel, "param_max_abs_diff": max_diff,
+            "param_share_above_1e-5": off}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -374,7 +703,7 @@ def main() -> int:
              .splitlines() if "Used" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built, "ptxas": ptxas})
-    smi = nvidia_smi()
+    smi = BG.device_name(device)
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
@@ -406,15 +735,34 @@ def main() -> int:
     emit({"phase": "fused_vs_gather_f32_2l",
           **phase_fused_vs_gather(device)})
 
-    print(nvidia_smi(), flush=True)
-    emit({"kernels": [{
+    phase_flash_check(device)
+    flash = phase_flash_time(device)
+    train = phase_train_470m(device)
+    emit({"phase": "train_470m", **train})
+    emit({"phase": "train_profile_470m",
+          **phase_train_profile_470m(device)})
+    emit({"phase": "train_flash_vs_dense_f32_2l",
+          **phase_train_flash_vs_dense_f32_2l(device)})
+
+    print(BG.device_name(device), flush=True)
+    kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "kungfu_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "kungfu_tpu/ops/paged_attention.py:65",
         "launches": serve["k5_launches"],
         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
-        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"]}]})
+        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"]}]
+    for name, line in FLASH_REPLACES.items():
+        rec = flash[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "kungfu_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"kungfu_tpu/ops/flash_attention.py:{line}",
+            "launches": train["launches"][name],
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -11,9 +11,9 @@ layouts, so a JAX checkpoint or parameter tree carries over by name
 
 Numerics follow the JAX functions: activations in ``cfg.dtype``, norms and
 softmax in f32, logits f32 from the f32 ``lm_head``.  What is ported is
-the dense path and the plain decode loop (the serving engine's oracle);
-tensor/sequence parallelism, remat and the flash attend come with the
-training slice.
+the training forward (flash or dense attend, remat modes), the loss and
+the plain decode loop (the serving engine's oracle); tensor and sequence
+parallelism come with the parallel slice.
 """
 from __future__ import annotations
 
@@ -23,8 +23,9 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from ..ops.flash_attention import _expand_kv_heads
+from ..ops.flash_attention import _expand_kv_heads, flash_attention
 from ..parallel.ring_attention import reference_attention
 
 
@@ -215,16 +216,26 @@ def _dense_ffn(layer, h, cfg: GPTConfig):
     return u @ layer["wm"].to(cfg.dtype)
 
 
-def _layer_finish(layer, x, o, cfg: GPTConfig):
-    """Attention output projection + residual + FFN."""
+def _layer_finish(layer, x, o, cfg: GPTConfig, remat_ffn: bool = False):
+    """Attention output projection + residual + FFN; with ``remat_ffn``
+    the norm + FFN sub-block is recomputed in the backward."""
     o = torch.einsum("bthk,hkd->btd", o, layer["wo"].to(cfg.dtype))
     x = x + o
-    return x + _dense_ffn(layer, rms_norm(x, layer["ln2"]), cfg)
+
+    def norm_ffn(x):
+        return _dense_ffn(layer, rms_norm(x, layer["ln2"]), cfg)
+
+    if remat_ffn:
+        norm_ffn = _checkpoint(norm_ffn)
+    return x + norm_ffn(x)
 
 
 def _attend(q, kk, v, attn: str, kv_groups: int = 1):
-    """``kk``/``v`` arrive compact (kv_heads); only the dense attend is
-    ported so far."""
+    """``kk``/``v`` arrive compact (kv_heads).  "flash": the flash
+    kernels (K1-K4), which read the compact KV heads directly; "dense":
+    the f32 oracle on expanded heads."""
+    if attn == "flash":
+        return flash_attention(q, kk, v, causal=True, kv_groups=kv_groups)
     if attn == "dense":
         return reference_attention(q, _expand_kv_heads(kk, kv_groups),
                                    _expand_kv_heads(v, kv_groups),
@@ -232,22 +243,101 @@ def _attend(q, kk, v, attn: str, kv_groups: int = 1):
     raise ValueError(f"unknown or unported attention mode {attn!r}")
 
 
-def forward_features(params, tokens, cfg: GPTConfig):
-    """Transformer stack -> post-norm features [B, T, D] (dense attend)."""
+def _checkpoint(fn):
+    """``fn`` rematerialised in the backward (non-reentrant
+    ``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``)."""
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False)
+
+
+def apply_layer(layer, x, cfg: GPTConfig, *, attn: str = "dense",
+                pos=None, remat_ffn: bool = False,
+                remat_around_attn: bool = False):
+    """One transformer block on ``x`` [B, T, D]; ``pos`` [T] the token
+    positions (default arange).
+
+    ``remat_ffn`` recomputes the norm + FFN sub-block in the backward.
+    ``remat_around_attn`` is selective remat: the qkv projections and the
+    output-projection + FFN tail each sit in their own checkpoint region
+    while the attention call stays OUTSIDE every region, so its residuals
+    (q, compact k/v, out, lse) are saved and the backward never re-runs
+    the attention forward."""
+    if pos is None:
+        pos = torch.arange(x.shape[1], device=x.device)
+
+    def qkv_fn(layer, x):
+        return _layer_qkv(layer, x, cfg, pos=pos)
+
+    def finish(layer, x, o):
+        return _layer_finish(layer, x, o, cfg, remat_ffn)
+
+    if remat_around_attn:
+        qkv_fn, finish = _checkpoint(qkv_fn), _checkpoint(finish)
+    q, kk, v = qkv_fn(layer, x)
+    o = _attend(q, kk, v, attn, kv_groups=cfg.kv_groups)
+    return finish(layer, x, o)
+
+
+_REMAT_MODES = (False, None, "", "none", True, "full", "ffn", "attn")
+
+
+def forward_features(params, tokens, cfg: GPTConfig, attn: str = "auto",
+                     remat=False):
+    """Transformer stack -> post-norm features [B, T, D] (everything but
+    the LM head); feed them to ``ops.chunked_ce.chunked_cross_entropy``
+    to train without [B, T, V] logits.
+
+    ``attn``: "flash" (the CUDA kernels; their plain version on a CPU
+    tensor) | "dense"; "auto" = flash on a CUDA tensor, dense on a CPU
+    one.  ``remat``: False/"none" | "full"/True (each layer recomputed
+    in the backward; the flash forward then runs twice per layer) |
+    "ffn" | "attn" (see :func:`apply_layer`)."""
+    if remat not in _REMAT_MODES:
+        raise ValueError(f"unknown remat mode {remat!r}")
+    if attn == "auto":
+        attn = "flash" if tokens.device.type == "cuda" else "dense"
     T = tokens.shape[1]
     pos = torch.arange(T, device=tokens.device)
     x = embed(params, tokens, pos[None], cfg)
+
+    def layer_fn(layer, x):
+        return apply_layer(layer, x, cfg, attn=attn, pos=pos,
+                           remat_ffn=(remat == "ffn"),
+                           remat_around_attn=(remat == "attn"))
+
+    if remat in (True, "full"):
+        layer_fn = _checkpoint(layer_fn)
     for layer in params["layers"]:
-        q, kk, v = _layer_qkv(layer, x, cfg, pos=pos)
-        o = _attend(q, kk, v, "dense", kv_groups=cfg.kv_groups)
-        x = _layer_finish(layer, x, o, cfg)
+        x = layer_fn(layer, x)
     return rms_norm(x, params["lnf"])
+
+
+def forward_local(params, tokens, cfg: GPTConfig, attn: str = "auto",
+                  remat=False):
+    """:func:`forward_features` + LM head -> f32 logits [B, T, V]."""
+    x = forward_features(params, tokens, cfg, attn=attn, remat=remat)
+    return torch.einsum("btd,dv->btv", x.float(), params["lm_head"].float())
+
+
+def parallel_cross_entropy(logits, targets):
+    """Token NLL [B, T] from f32 logits [B, T, V] (the unsharded case of
+    the JAX function: the max is a stability shift with its gradient
+    stopped)."""
+    m = logits.detach().amax(dim=-1)
+    denom = torch.exp(logits - m[..., None]).sum(dim=-1)
+    picked = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return m + torch.log(denom) - picked
 
 
 def forward(params, tokens, cfg: GPTConfig):
     """Single-device forward -> f32 logits [B, T, V] (the oracle)."""
-    x = forward_features(params, tokens, cfg)
-    return torch.einsum("btd,dv->btv", x.float(), params["lm_head"])
+    return forward_local(params, tokens, cfg, attn="dense")
+
+
+def loss_fn(params, tokens, targets, cfg: GPTConfig):
+    """Mean token NLL (the oracle)."""
+    return parallel_cross_entropy(forward(params, tokens, cfg),
+                                  targets).mean()
 
 
 # --------------------------------------------------------------- generation

@@ -25,10 +25,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L3 = ctypes.POINTER(ctypes.c_longlong)     # (batch, time, head) strides
 # source name -> {C function: (argtypes, restype)}.  Pointers and the
 # stream are c_void_p so ctypes never cuts them to 32 bits; a launching
 # function returns a CUDA error code (int, 0 = success).
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "flash_attention": {
+        # q, k, v, out, lse | qs, ks, vs | B, H, KVH, Tq, Tk, D, dtype,
+        # causal | scale | stream
+        "kft_flash_fwd": ([_P] * 5 + [_L3] * 3 + [_I] * 8 + [_F, _P], _I),
+        # o, dout, dlse, delta | os, dos | B, H, T, D, dtype | stream
+        "kft_flash_delta": ([_P] * 4 + [_L3] * 2 + [_I] * 5 + [_P], _I),
+        # q, k, v, dout, lse, delta, dq | qs, ks, vs, dos | B, H, KVH, Tq,
+        # Tk, D, dtype, causal | scale | stream
+        "kft_flash_bwd_dq": ([_P] * 7 + [_L3] * 4 + [_I] * 8 + [_F, _P],
+                             _I),
+        # q, k, v, dout, lse, delta, dk, dv | qs, ks, vs, dos | ... as dq
+        "kft_flash_bwd_dkv": ([_P] * 8 + [_L3] * 4 + [_I] * 8 + [_F, _P],
+                              _I),
+    },
     "paged_attention": {
         # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, workspace,
         # S, Q, H, KVH, Dh, bs, MB, dtype, quant, scale, stream

@@ -1,0 +1,750 @@
+// Flash attention for Hopper (sm_90a): the forward and its backward, as
+// four kernels (K1-K4) over [B, T, heads, D] tensors addressed by strides.
+//
+// K1 fa_fwd       replaces _fa_kernel        (kungfu_tpu/ops/flash_attention.py:133)
+// K2 fa_delta     replaces _fa_delta_kernel  (kungfu_tpu/ops/flash_attention.py:279)
+// K3 fa_bwd_dq    replaces _fa_bwd_dq_kernel (kungfu_tpu/ops/flash_attention.py:317,
+//                 with _block_p_ds :288)
+// K4 fa_bwd_dkv   replaces _fa_bwd_dkv_kernel (kungfu_tpu/ops/flash_attention.py:344)
+//
+// Numerics are the TPU kernels':
+//   * softmax in base 2: scores s = (q . k) * scale * log2(e), p = exp2(s - m);
+//   * the causal mask is qpos >= kpos, both counted from 0 (also when
+//     Tq != Tk); masked scores are -1e30, not -inf;
+//   * products take the input dtype and accumulate in f32 (bf16 through
+//     mma.sync m16n8k16 on the tensor cores; f32 with scalar f32 FMAs, so
+//     there is no TF32 anywhere);
+//   * p is rounded to the input dtype before P.V and before dv += P^T dO;
+//     ds is rounded before dq += ds K and dk += ds^T q;
+//   * each output is written once, in the input dtype; lse is emitted in
+//     natural log, m / log2(e) + log(max(l, 1e-30)), as [B, H, Tq] f32;
+//   * GQA: query head h reads KV head h / (H / KVH); K4 sums the g query
+//     heads of a KV head in its f32 accumulators and writes compact dk/dv
+//     (what _compact_kv_grad computes after the TPU kernel), with no atomics.
+//
+// Tiles: 64 query rows by 64 keys, 4 warps of 16 rows each.  Rows past T
+// are zero-filled on the way into shared memory and masked, so any T
+// works (the TPU's fit_block multiple-of-8 rule does not apply).  The
+// causal classifier causal_tile_class (the TPU's _causal_tile_classes)
+// skips tiles above the diagonal, runs tiles below it unmasked and masks
+// the tiles that straddle it or the ragged edge.
+//
+// What bounds them (the 470m training shapes, B=2, T=2048, H=16, KVH=4,
+// D=64, causal, bf16): K1, K3 and K4 are bound by tensor-core operations
+// (17-34 GFLOP against tens of MB), K2 by bytes (it reads O and dO once).
+// What this first version does about it: the products run on the tensor
+// cores from shared-memory tiles, the online-softmax state and the
+// accumulators stay in registers, and nothing of size [T, T] ever reaches
+// device memory.  What it leaves for later: staging is synchronous (no
+// cp.async / TMA double buffering), fragments are read with 32-bit shared
+// loads (no ldmatrix), and wgmma / warp specialisation are not used.
+//
+// Built by kungfu_tpu_torch/ops/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// into a shared library with a plain C interface (loaded with ctypes).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kInvLog2e = 0.6931471805599453f;
+constexpr int kBQ = 64;       // query rows per tile (4 warps x 16)
+constexpr int kBK = 64;       // keys per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Row padding of a shared tile, in elements: 16 bytes keeps every row
+// 16-byte aligned and shifts consecutive rows by four banks.
+template <typename T>
+__host__ __device__ constexpr int pad() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+struct Params {
+  const void *q, *k, *v, *o, *dout;
+  void *out, *dq, *dk, *dv;
+  float* lse;             // K1 output [B, H, Tq] (may be null)
+  const float* lse_in;    // K3/K4 input [B, H, Tq]
+  const float* delta;     // K3/K4 input [B, H, Tq]
+  const float* dlse;      // K2 input [B, H, Tq] (may be null)
+  float* delta_out;       // K2 output [B, H, Tq]
+  long long qs[3], ks[3], vs[3], os[3], dos[3];  // strides (b, t, head)
+  int B, H, KVH, Tq, Tk, causal;
+  float scale;            // 1 / sqrt(D)
+};
+
+// The TPU's _causal_tile_classes, once for all kernels: `below` = every
+// key of the tile visible to every query of it, `on_diag` = the tile
+// straddles the diagonal, `visible` = any pair visible.
+struct TileClass {
+  bool visible, below, on_diag;
+};
+
+__device__ __forceinline__ TileClass causal_tile_class(int iq, int ik) {
+  const int q_lo = iq * kBQ, q_hi = q_lo + kBQ - 1;
+  const int k_lo = ik * kBK, k_hi = k_lo + kBK - 1;
+  TileClass c;
+  c.visible = k_lo <= q_hi;
+  c.below = k_hi <= q_lo;
+  c.on_diag = c.visible && (k_hi > q_lo);
+  return c;
+}
+
+// Whether a tile needs the elementwise mask: it straddles the causal
+// diagonal, or it reaches past the end of the queries or the keys.
+__device__ __forceinline__ bool tile_masked(const Params& p, int iq, int ik) {
+  return (p.causal && causal_tile_class(iq, ik).on_diag) ||
+         (iq + 1) * kBQ > p.Tq || (ik + 1) * kBK > p.Tk;
+}
+
+__device__ __forceinline__ bool pair_visible(const Params& p, int qpos,
+                                             int kpos) {
+  return qpos < p.Tq && kpos < p.Tk && (!p.causal || qpos >= kpos);
+}
+
+// Stage 64 rows [t0, t0 + 64) of one head into shared memory (row stride
+// D + pad), zero-filling rows at or past `T`; 16-byte loads.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* s, const T* g, long long st,
+                                          int t0, int T_len) {
+  constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;
+  constexpr int LD = D + pad<T>();
+  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (t0 + r < T_len)
+      val = reinterpret_cast<const uint4*>(g + (t0 + r) * st)[c];
+    reinterpret_cast<uint4*>(s + r * LD)[c] = val;
+  }
+}
+
+// A shared-memory matrix seen as X(m, k) = p[m * SM + k * SK].
+template <typename T, int SM, int SK>
+struct Mat {
+  const T* p;
+  __device__ __forceinline__ float at(int m, int k) const {
+    return to_f(p[m * SM + k * SK]);
+  }
+  // bf16 pair (X(m, k), X(m, k + 1)) packed low-to-high for mma.sync
+  __device__ __forceinline__ uint32_t pair(int m, int k) const {
+    if constexpr (SK == 1) {
+      return *reinterpret_cast<const uint32_t*>(p + m * SM + k);
+    } else {
+      const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+      return static_cast<uint32_t>(u[m * SM + k * SK]) |
+             (static_cast<uint32_t>(u[m * SM + (k + 1) * SK]) << 16);
+    }
+  }
+};
+
+// One warp: C[16, 8 * NT] += A[16, K] . B[K, 8 * NT], with A given as
+// A(m, k) and B as B(n, k).  C lives in registers in the mma.sync m16n8
+// accumulator layout: lane (g = lane / 4, t = lane % 4) holds, for n-tile
+// j, rows g and g + 8 at columns 8j + 2t and 8j + 2t + 1 as
+// c[j] = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.  bf16 runs on the
+// tensor cores; f32 keeps the same ownership with scalar FMAs.
+template <typename T, int NT, int K, class MA, class MB>
+__device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const MA& a,
+                                          const MB& b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      const uint32_t a0 = a.pair(g, k0 + 2 * t);
+      const uint32_t a1 = a.pair(g + 8, k0 + 2 * t);
+      const uint32_t a2 = a.pair(g, k0 + 2 * t + 8);
+      const uint32_t a3 = a.pair(g + 8, k0 + 2 * t + 8);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint32_t b0 = b.pair(8 * j + g, k0 + 2 * t);
+        const uint32_t b1 = b.pair(8 * j + g, k0 + 2 * t + 8);
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float x0 = a.at(g, k), x1 = a.at(g + 8, k);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float y0 = b.at(8 * j + 2 * t, k);
+        const float y1 = b.at(8 * j + 2 * t + 1, k);
+        c[j][0] = fmaf(x0, y0, c[j][0]);
+        c[j][1] = fmaf(x0, y1, c[j][1]);
+        c[j][2] = fmaf(x1, y0, c[j][2]);
+        c[j][3] = fmaf(x1, y1, c[j][3]);
+      }
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&c)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+}
+
+// Reduce over the 4 lanes that share a row of the accumulator layout.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Write a warp's [16, 8 * NT] accumulator into shared memory rows of
+// stride LDS, rounded to T.
+template <typename T, int NT, int LDS>
+__device__ __forceinline__ void store_frag(T* s, const float (&c)[NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[(g + (e >> 1) * 8) * LDS + 8 * j + 2 * t + (e & 1)] =
+          from_f<T>(c[j][e]);
+}
+
+// Write a warp's [16, D] accumulator rows [row0, row0 + 16) to a
+// contiguous-D output row by row (row stride `st`), rows < T_len only.
+template <typename T, int NT>
+__device__ __forceinline__ void write_rows(T* out, long long st, int row0,
+                                           int T_len, const float (&c)[NT][4],
+                                           float mul0, float mul1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + 8 * half;
+    if (row >= T_len) continue;
+    const float mul = half ? mul1 : mul0;
+    T* dst = out + row * st;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      dst[8 * j + 2 * t] = from_f<T>(c[j][2 * half] * mul);
+      dst[8 * j + 2 * t + 1] = from_f<T>(c[j][2 * half + 1] * mul);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K1
+// One thread block per (q-tile, b * H + h); loops over the visible k-tiles
+// with the online-softmax state (m, l) and the output accumulator in
+// registers.  Tiles are visited from k = 0 up, so a row's running max is
+// finite after the first tile (key 0 is visible to every query).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    fa_fwd(const Params p, float scale_log2) {
+  constexpr int LD = D + pad<T>(), LP = kBK + pad<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sK = sQ + kBQ * LD;
+  T* sV = sK + kBK * LD;
+  T* sP = sV + kBK * LD;
+
+  const int n_q = (p.Tq + kBQ - 1) / kBQ;
+  const int iq = n_q - 1 - blockIdx.x;       // longest causal rows first
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[2];
+  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + kvh * p.ks[2];
+  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + kvh * p.vs[2];
+
+  load_tile<T, D>(sQ, qg, p.qs[1], iq * kBQ, p.Tq);
+
+  float acc[D / 8][4];
+  zero(acc);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int n_k = (p.Tk + kBK - 1) / kBK;
+  int k_end = n_k;
+  if (p.causal) {
+    const int last = (iq * kBQ + kBQ - 1) / kBK;   // last visible tile
+    k_end = last + 1 < n_k ? last + 1 : n_k;
+  }
+  const int row_base = iq * kBQ + warp * 16 + g;
+  for (int ik = 0; ik < k_end; ++ik) {
+    __syncthreads();                 // the previous tile is consumed
+    load_tile<T, D>(sK, kg, p.ks[1], ik * kBK, p.Tk);
+    load_tile<T, D>(sV, vg, p.vs[1], ik * kBK, p.Tk);
+    __syncthreads();
+    float s[kBK / 8][4];
+    zero(s);
+    warp_gemm<T, kBK / 8, D>(s, Mat<T, LD, 1>{sQ + warp * 16 * LD},
+                             Mat<T, LD, 1>{sK});
+    const bool masked = tile_masked(p, iq, ik);
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (masked &&
+            !pair_visible(p, row_base + (e >> 1) * 8,
+                          ik * kBK + 8 * j + 2 * t + (e & 1)))
+          x = kNegInf;
+        s[j][e] = x;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = quad_max(mx);
+      const float m_new = fmaxf(m[r], mx);
+      const float corr = exp2f(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        s[j][2 * r] = exp2f(s[j][2 * r] - m_new);
+        s[j][2 * r + 1] = exp2f(s[j][2 * r + 1] - m_new);
+        sum += s[j][2 * r] + s[j][2 * r + 1];
+      }
+      l[r] = corr * l[r] + quad_sum(sum);
+      m[r] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * r] *= corr;
+        acc[j][2 * r + 1] *= corr;
+      }
+    }
+    // p, rounded to T, through this warp's rows of sP into the PV product
+    store_frag<T, kBK / 8, LP>(sP + warp * 16 * LP, s);
+    __syncwarp();
+    warp_gemm<T, D / 8, kBK>(acc, Mat<T, LP, 1>{sP + warp * 16 * LP},
+                             Mat<T, 1, LD>{sV});
+    __syncwarp();
+  }
+
+  const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
+  T* og = static_cast<T*>(p.out) + b * p.os[0] + h * p.os[2];
+  write_rows<T, D / 8>(og, p.os[1], iq * kBQ + warp * 16, p.Tq, acc,
+                       1.f / l0, 1.f / l1);
+  if (p.lse != nullptr && t == 0) {
+    float* lse = p.lse + (static_cast<long long>(b) * p.H + h) * p.Tq;
+    if (row_base < p.Tq) lse[row_base] = m[0] * kInvLog2e + logf(l0);
+    if (row_base + 8 < p.Tq) lse[row_base + 8] = m[1] * kInvLog2e + logf(l1);
+  }
+}
+
+// ------------------------------------------------------------------ K2
+// delta[b, h, t] = sum_d dO * O in f32, minus dlse when given; one warp
+// per row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fa_delta(const Params p, int D) {
+  const long long row = static_cast<long long>(blockIdx.x) * kWarps +
+                        (threadIdx.x >> 5);
+  const long long rows = static_cast<long long>(p.B) * p.H * p.Tq;
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const int tq = static_cast<int>(row % p.Tq);
+  const int bh = static_cast<int>(row / p.Tq);
+  const int b = bh / p.H, h = bh % p.H;
+  const T* o = static_cast<const T*>(p.o) + b * p.os[0] + tq * p.os[1] +
+               h * p.os[2];
+  const T* d = static_cast<const T*>(p.dout) + b * p.dos[0] +
+               tq * p.dos[1] + h * p.dos[2];
+  float s = 0.f;
+  for (int i = lane; i < D; i += 32) s = fmaf(to_f(o[i]), to_f(d[i]), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0)
+    p.delta_out[row] = p.dlse != nullptr ? s - p.dlse[row] : s;
+}
+
+// Recompute one (q-tile, k-tile) pair for this warp's 16 query rows:
+// s = q k^T, dp = dO v^T; then p = exp2(s * scale * log2e - lse * log2e)
+// (0 where masked) into `s`, and ds = p (dp - delta) scale into `dp`.
+template <typename T, int D>
+__device__ __forceinline__ void block_p_ds(
+    const Params& p, float (&s)[kBK / 8][4], float (&dp)[kBK / 8][4],
+    const T* sQw, const T* sdOw, const T* sK, const T* sV, int iq, int ik,
+    int row_base, const float (&lse2)[2], const float (&dl)[2],
+    float scale_log2) {
+  constexpr int LD = D + pad<T>();
+  const int t = (threadIdx.x & 31) & 3;
+  zero(s);
+  zero(dp);
+  warp_gemm<T, kBK / 8, D>(s, Mat<T, LD, 1>{sQw}, Mat<T, LD, 1>{sK});
+  warp_gemm<T, kBK / 8, D>(dp, Mat<T, LD, 1>{sdOw}, Mat<T, LD, 1>{sV});
+  const bool masked = tile_masked(p, iq, ik);
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float x = s[j][e] * scale_log2;
+      if (masked && !pair_visible(p, row_base + 8 * r,
+                                  ik * kBK + 8 * j + 2 * t + (e & 1)))
+        x = kNegInf;
+      const float pr = exp2f(x - lse2[r]);
+      s[j][e] = pr;
+      dp[j][e] = pr * (dp[j][e] - dl[r]) * p.scale;
+    }
+}
+
+// ------------------------------------------------------------------ K3
+// One thread block per (q-tile, b * H + h); loops over the visible
+// k-tiles; dq stays in f32 registers and is written once.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    fa_bwd_dq(const Params p, float scale_log2) {
+  constexpr int LD = D + pad<T>(), LP = kBK + pad<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sdO = sQ + kBQ * LD;
+  T* sK = sdO + kBQ * LD;
+  T* sV = sK + kBK * LD;
+  T* sdS = sV + kBK * LD;
+
+  const int n_q = (p.Tq + kBQ - 1) / kBQ;
+  const int iq = n_q - 1 - blockIdx.x;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[2];
+  const T* dog = static_cast<const T*>(p.dout) + b * p.dos[0] +
+                 h * p.dos[2];
+  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + kvh * p.ks[2];
+  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + kvh * p.vs[2];
+  load_tile<T, D>(sQ, qg, p.qs[1], iq * kBQ, p.Tq);
+  load_tile<T, D>(sdO, dog, p.dos[1], iq * kBQ, p.Tq);
+
+  const int row_base = iq * kBQ + warp * 16 + g;
+  const long long rs = (static_cast<long long>(b) * p.H + h) * p.Tq;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_base + 8 * r;
+    lse2[r] = row < p.Tq ? p.lse_in[rs + row] * kLog2e : 0.f;
+    dl[r] = row < p.Tq ? p.delta[rs + row] : 0.f;
+  }
+
+  float dq[D / 8][4];
+  zero(dq);
+  const int n_k = (p.Tk + kBK - 1) / kBK;
+  int k_end = n_k;
+  if (p.causal) {
+    const int last = (iq * kBQ + kBQ - 1) / kBK;
+    k_end = last + 1 < n_k ? last + 1 : n_k;
+  }
+  for (int ik = 0; ik < k_end; ++ik) {
+    __syncthreads();
+    load_tile<T, D>(sK, kg, p.ks[1], ik * kBK, p.Tk);
+    load_tile<T, D>(sV, vg, p.vs[1], ik * kBK, p.Tk);
+    __syncthreads();
+    float s[kBK / 8][4], ds[kBK / 8][4];
+    block_p_ds<T, D>(p, s, ds, sQ + warp * 16 * LD, sdO + warp * 16 * LD,
+                     sK, sV, iq, ik, row_base, lse2, dl, scale_log2);
+    store_frag<T, kBK / 8, LP>(sdS + warp * 16 * LP, ds);
+    __syncwarp();
+    warp_gemm<T, D / 8, kBK>(dq, Mat<T, LP, 1>{sdS + warp * 16 * LP},
+                             Mat<T, 1, LD>{sK});
+    __syncwarp();
+  }
+  T* dqg = static_cast<T*>(p.dq) +
+           static_cast<long long>(b) * p.Tq * p.H * D + h * D;
+  write_rows<T, D / 8>(dqg, static_cast<long long>(p.H) * D,
+                       iq * kBQ + warp * 16, p.Tq, dq, 1.f, 1.f);
+}
+
+// ------------------------------------------------------------------ K4
+// One thread block per (k-tile, b * KVH + kv head); loops over the g
+// query heads of the KV head and their visible q-tiles.  Per pair: the
+// warps first own 16 query rows each and write p and ds (rounded to T) to
+// shared memory; then they own 16 keys each and accumulate dv += p^T dO,
+// dk += ds^T q in f32 registers.  Compact dk/dv are written once.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    fa_bwd_dkv(const Params p, float scale_log2) {
+  constexpr int LD = D + pad<T>(), LP = kBK + pad<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + kBK * LD;
+  T* sQ = sV + kBK * LD;
+  T* sdO = sQ + kBQ * LD;
+  T* sP = sdO + kBQ * LD;
+  T* sdS = sP + kBQ * LP;
+
+  const int n_k = (p.Tk + kBK - 1) / kBK;
+  const int ik = n_k - 1 - blockIdx.x;
+  const int b = blockIdx.y / p.KVH, kvh = blockIdx.y % p.KVH;
+  const int G = p.H / p.KVH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + kvh * p.ks[2];
+  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + kvh * p.vs[2];
+  load_tile<T, D>(sK, kg, p.ks[1], ik * kBK, p.Tk);
+  load_tile<T, D>(sV, vg, p.vs[1], ik * kBK, p.Tk);
+
+  float dk[D / 8][4], dv[D / 8][4];
+  zero(dk);
+  zero(dv);
+  const int n_q = (p.Tq + kBQ - 1) / kBQ;
+  // first q-tile whose last row reaches this tile's first key
+  const int q_start = p.causal ? (ik * kBK) / kBQ : 0;
+  for (int hj = 0; hj < G; ++hj) {
+    const int h = kvh * G + hj;
+    const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[2];
+    const T* dog = static_cast<const T*>(p.dout) + b * p.dos[0] +
+                   h * p.dos[2];
+    const long long rs = (static_cast<long long>(b) * p.H + h) * p.Tq;
+    for (int iq = q_start; iq < n_q; ++iq) {
+      __syncthreads();               // sQ/sdO/sP/sdS are consumed
+      load_tile<T, D>(sQ, qg, p.qs[1], iq * kBQ, p.Tq);
+      load_tile<T, D>(sdO, dog, p.dos[1], iq * kBQ, p.Tq);
+      __syncthreads();
+      const int row_base = iq * kBQ + warp * 16 + g;
+      float lse2[2], dl[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_base + 8 * r;
+        lse2[r] = row < p.Tq ? p.lse_in[rs + row] * kLog2e : 0.f;
+        dl[r] = row < p.Tq ? p.delta[rs + row] : 0.f;
+      }
+      {
+        float s[kBK / 8][4], ds[kBK / 8][4];
+        block_p_ds<T, D>(p, s, ds, sQ + warp * 16 * LD, sdO + warp * 16 * LD,
+                         sK, sV, iq, ik, row_base, lse2, dl, scale_log2);
+        store_frag<T, kBK / 8, LP>(sP + warp * 16 * LP, s);
+        store_frag<T, kBK / 8, LP>(sdS + warp * 16 * LP, ds);
+      }
+      __syncthreads();               // every warp's rows of sP/sdS
+      // rows of the products are keys: A(key, q) = sP[q][key]
+      warp_gemm<T, D / 8, kBQ>(dv, Mat<T, 1, LP>{sP + warp * 16},
+                               Mat<T, 1, LD>{sdO});
+      warp_gemm<T, D / 8, kBQ>(dk, Mat<T, 1, LP>{sdS + warp * 16},
+                               Mat<T, 1, LD>{sQ});
+    }
+  }
+  const long long ob = static_cast<long long>(b) * p.Tk * p.KVH * D +
+                       static_cast<long long>(kvh) * D;
+  const long long ost = static_cast<long long>(p.KVH) * D;
+  write_rows<T, D / 8>(static_cast<T*>(p.dk) + ob, ost,
+                       ik * kBK + warp * 16, p.Tk, dk, 1.f, 1.f);
+  write_rows<T, D / 8>(static_cast<T*>(p.dv) + ob, ost,
+                       ik * kBK + warp * 16, p.Tk, dv, 1.f, 1.f);
+}
+
+// ------------------------------------------------------------- launches
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd(const Params& p, cudaStream_t st) {
+  constexpr size_t LD = D + pad<T>(), LP = kBK + pad<T>();
+  const size_t smem = sizeof(T) * ((kBQ + 2 * kBK) * LD + kBQ * LP);
+  auto kern = fa_fwd<T, D>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Tq + kBQ - 1) / kBQ, p.B * p.H);
+  kern<<<grid, kThreads, smem, st>>>(p, p.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const Params& p, cudaStream_t st) {
+  constexpr size_t LD = D + pad<T>(), LP = kBK + pad<T>();
+  const size_t smem = sizeof(T) * ((2 * kBQ + 2 * kBK) * LD + kBQ * LP);
+  auto kern = fa_bwd_dq<T, D>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Tq + kBQ - 1) / kBQ, p.B * p.H);
+  kern<<<grid, kThreads, smem, st>>>(p, p.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Params& p, cudaStream_t st) {
+  constexpr size_t LD = D + pad<T>(), LP = kBK + pad<T>();
+  const size_t smem =
+      sizeof(T) * ((2 * kBQ + 2 * kBK) * LD + 2 * kBQ * LP);
+  auto kern = fa_bwd_dkv<T, D>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Tk + kBK - 1) / kBK, p.B * p.KVH);
+  kern<<<grid, kThreads, smem, st>>>(p, p.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128.
+#define KFT_DISPATCH(fn)                                                 \
+  cudaError_t fn##_any(const Params& p, int D, int dtype,                  \
+                       cudaStream_t st) {                                  \
+    if (dtype == 0 && D == 64) return fn<float, 64>(p, st);                \
+    if (dtype == 0 && D == 128) return fn<float, 128>(p, st);              \
+    if (dtype == 1 && D == 64) return fn<bf16, 64>(p, st);                 \
+    if (dtype == 1 && D == 128) return fn<bf16, 128>(p, st);               \
+    return cudaErrorInvalidValue;                                          \
+  }
+KFT_DISPATCH(launch_fwd)
+KFT_DISPATCH(launch_dq)
+KFT_DISPATCH(launch_dkv)
+#undef KFT_DISPATCH
+
+Params make_params(int B, int H, int KVH, int Tq, int Tk, int causal,
+                   float scale) {
+  Params p = {};
+  p.B = B;
+  p.H = H;
+  p.KVH = KVH;
+  p.Tq = Tq;
+  p.Tk = Tk;
+  p.causal = causal;
+  p.scale = scale;
+  return p;
+}
+
+void set3(long long* dst, const long long* src) {
+  dst[0] = src[0];
+  dst[1] = src[1];
+  dst[2] = src[2];
+}
+
+}  // namespace
+
+// Every function below launches on `stream` without synchronising and
+// returns the CUDA error code of its launch (0 = success).  Strides are
+// in elements, (batch, time, head) for [B, T, heads, D] tensors whose last
+// dimension is contiguous and whose rows are 16-byte aligned.  Outputs
+// are contiguous: out/dq [B, Tq, H, D], dk/dv [B, Tk, KVH, D], lse and
+// delta [B, H, Tq] f32.
+
+// K1: out (and lse unless null) from q, k, v.
+extern "C" int kft_flash_fwd(const void* q, const void* k, const void* v,
+                             void* out, float* lse, const long long* qs,
+                             const long long* ks, const long long* vs,
+                             int B, int H, int KVH, int Tq, int Tk, int D,
+                             int dtype, int causal, float scale,
+                             void* stream) {
+  if (B == 0 || Tq == 0) return 0;
+  Params p = make_params(B, H, KVH, Tq, Tk, causal, scale);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
+  p.lse = lse;
+  set3(p.qs, qs);
+  set3(p.ks, ks);
+  set3(p.vs, vs);
+  p.os[0] = static_cast<long long>(Tq) * H * D;
+  p.os[1] = static_cast<long long>(H) * D;
+  p.os[2] = D;
+  return static_cast<int>(
+      launch_fwd_any(p, D, dtype, static_cast<cudaStream_t>(stream)));
+}
+
+// K2: delta = rowsum(dO * O) - dlse (dlse may be null).
+extern "C" int kft_flash_delta(const void* o, const void* dout,
+                               const float* dlse, float* delta,
+                               const long long* os, const long long* dos,
+                               int B, int H, int T, int D, int dtype,
+                               void* stream) {
+  const long long rows = static_cast<long long>(B) * H * T;
+  if (rows == 0) return 0;
+  Params p = make_params(B, H, H, T, T, 0, 0.f);
+  p.o = o;
+  p.dout = dout;
+  p.dlse = dlse;
+  p.delta_out = delta;
+  set3(p.os, os);
+  set3(p.dos, dos);
+  const dim3 grid(static_cast<unsigned>((rows + kWarps - 1) / kWarps));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    fa_delta<float><<<grid, kThreads, 0, st>>>(p, D);
+  else if (dtype == 1)
+    fa_delta<bf16><<<grid, kThreads, 0, st>>>(p, D);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3: dq from q, k, v, dO, lse, delta.
+extern "C" int kft_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse,
+                                const float* delta, void* dq,
+                                const long long* qs, const long long* ks,
+                                const long long* vs, const long long* dos,
+                                int B, int H, int KVH, int Tq, int Tk, int D,
+                                int dtype, int causal, float scale,
+                                void* stream) {
+  if (B == 0 || Tq == 0) return 0;
+  Params p = make_params(B, H, KVH, Tq, Tk, causal, scale);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse_in = lse;
+  p.delta = delta;
+  p.dq = dq;
+  set3(p.qs, qs);
+  set3(p.ks, ks);
+  set3(p.vs, vs);
+  set3(p.dos, dos);
+  return static_cast<int>(
+      launch_dq_any(p, D, dtype, static_cast<cudaStream_t>(stream)));
+}
+
+// K4: compact dk, dv from q, k, v, dO, lse, delta.
+extern "C" int kft_flash_bwd_dkv(const void* q, const void* k,
+                                 const void* v, const void* dout,
+                                 const float* lse, const float* delta,
+                                 void* dk, void* dv, const long long* qs,
+                                 const long long* ks, const long long* vs,
+                                 const long long* dos, int B, int H, int KVH,
+                                 int Tq, int Tk, int D, int dtype,
+                                 int causal, float scale, void* stream) {
+  if (B == 0 || Tk == 0) return 0;
+  Params p = make_params(B, H, KVH, Tq, Tk, causal, scale);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse_in = lse;
+  p.delta = delta;
+  p.dk = dk;
+  p.dv = dv;
+  set3(p.qs, qs);
+  set3(p.ks, ks);
+  set3(p.vs, vs);
+  set3(p.dos, dos);
+  return static_cast<int>(
+      launch_dkv_any(p, D, dtype, static_cast<cudaStream_t>(stream)));
+}

@@ -107,3 +107,85 @@ def test_engine_fused_matches_gather_on_card(cuda_device, extra):
         launched = PA.launches - before
         assert (launched > 0) == (attend == "fused")
     assert out["fused"] == out["gather"]
+
+
+# ------------------------------------------------- K1-K4 (flash attention)
+FLASH_CASES = [
+    # B, Tq, Tk, H, KVH, D, causal, dtype, dlse
+    (2, 512, 512, 16, 4, 64, True, torch.bfloat16, False),
+    (2, 256, 256, 4, 4, 64, True, torch.float32, False),
+    (2, 384, 384, 4, 4, 128, False, torch.bfloat16, False),
+    (1, 256, 256, 8, 2, 128, True, torch.float32, False),
+    (1, 1000, 1000, 8, 2, 64, True, torch.bfloat16, False),
+    (2, 192, 320, 4, 2, 64, True, torch.float32, False),
+    (1, 320, 200, 4, 1, 128, False, torch.bfloat16, False),
+    (2, 256, 256, 8, 2, 64, True, torch.bfloat16, True),
+    (1, 200, 200, 4, 4, 128, False, torch.float32, True),
+]
+
+
+def _flash_inputs(device, B, Tq, Tk, H, KVH, D, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device=device).to(dtype)
+    return (mk(B, Tq, H, D), mk(B, Tk, KVH, D), mk(B, Tk, KVH, D),
+            mk(B, Tq, H, D), torch.randn((B, H, Tq), generator=g,
+                                         device=device))
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,KVH,D,causal,dtype,use_dlse",
+                         FLASH_CASES)
+def test_flash_kernels_match_plain(cuda_device, B, Tq, Tk, H, KVH, D,
+                                   causal, dtype, use_dlse):
+    """out, lse, dq, dk, dv through K1-K4 against autograd through the
+    plain version.  Tolerance relative to the largest reference value:
+    bf16 2e-2 (p and ds rounded before the products, outputs rounded
+    once); f32 1e-4 (summation order)."""
+    from kungfu_tpu_torch.ops import flash_attention as FA
+    g = H // KVH
+    q, k, v, do, dlse = _flash_inputs(cuda_device, B, Tq, Tk, H, KVH, D,
+                                      dtype)
+    before = dict(FA.launches)
+    res = {}
+    for path in ("kernel", "plain"):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        if path == "kernel":
+            out, lse = FA.flash_attention_with_lse(qq, kk, vv, causal,
+                                                   kv_groups=g)
+        else:
+            out, lse = FA.flash_attention_ref(
+                qq, FA._expand_kv_heads(kk, g), FA._expand_kv_heads(vv, g),
+                causal)
+        loss = (out.float() * do.float()).sum()
+        if use_dlse:
+            loss = loss + (lse * dlse).sum()
+        loss.backward()
+        res[path] = (out.detach(), lse.detach(), qq.grad, kk.grad, vv.grad)
+    torch.cuda.synchronize()
+    assert all(FA.launches[n] == before[n] + 1 for n in FA.launches)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip(res["kernel"], res["plain"]):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        err = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max().clamp(min=1.0)).item()
+        assert err <= tol
+
+
+def test_flash_kernels_reject_bad_inputs(cuda_device):
+    from kungfu_tpu_torch.ops import flash_attention as FA
+    q, k, v, do, _ = _flash_inputs(cuda_device, 1, 64, 64, 4, 2, 64,
+                                   torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_forward(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                         v[..., :32].contiguous(), True, 2)
+    with pytest.raises(TypeError):
+        FA.flash_forward(q.half(), k.half(), v.half(), True, 2)
+    with pytest.raises(TypeError):
+        FA.flash_forward(q, k.float(), v, True, 2)
+    with pytest.raises(ValueError):
+        FA.flash_forward(q, k.cpu(), v, True, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3),
+                         k, v, True, 2)
+    out, lse = FA.flash_forward(q, k, v, True, 2)
+    with pytest.raises(ValueError, match="row statistic"):
+        FA.flash_bwd_dq(q, k, v, do, lse.transpose(1, 2), lse, True, 2)
