@@ -20,8 +20,11 @@
 5. holds the flash-attention kernels K1-K4 (forward, delta, dq, dk/dv)
    against their plain version through autograd -- bf16 and f32, head_dim
    64 and 128, causal and not, GQA, a ragged T, Tq != Tk, an lse
-   cotangent -- and times each at the 470m training shapes beside its
-   bound, its plain version and SDPA's forward or backward;
+   cotangent, the 470m training shapes -- per tile of 64 rows, shows with
+   planted faults (a skipped k-tile, a missing rescale, a dropped query
+   head) that the limits would catch them, and times each kernel at the
+   470m training shapes beside its bound, its plain version and a
+   library call;
 6. trains the 470m GPT through kungfu_tpu_torch.benchmarks.gpt's code
    (--preset 470m: 64 x 2048 tokens a step in 32 microbatches, bf16
    compute, f32 AdamW masters), 1 warm-up and 2 timed steps, checking
@@ -368,14 +371,14 @@ def phase_fused_vs_gather(device, lengths=(5, 40, 130, 300)) -> dict:
 
 
 # ------------------------------------------------ phase 5: K1-K4 (flash)
+# The cases, inputs and error measure below are shared with
+# tests/test_torch_kernels_cuda.py.
 # the 470m training shapes: one microbatch of 2 x 2048, 16 heads, 4 KV
 # heads, head_dim 64, causal, bf16
 FLASH_470M = dict(B=2, Tq=2048, Tk=2048, H=16, KVH=4, D=64, causal=True,
                   dtype=torch.bfloat16)
 FLASH_CASES = {
-    # name: B, Tq, Tk, H, KVH, D, causal, dtype, dlse, tol (relative to
-    # the largest reference value: bf16 rounds p and ds before products
-    # and every output once; f32 differs by summation order only)
+    # name: B, Tq, Tk, H, KVH, D, causal, dtype, lse cotangent
     "a_bf16_d64_causal_g4": (2, 512, 512, 16, 4, 64, True, "bf16", False),
     "b_f32_d64_causal_g1": (2, 256, 256, 4, 4, 64, True, "f32", False),
     "c_bf16_d128_full_g1": (2, 384, 384, 4, 4, 128, False, "bf16", False),
@@ -388,8 +391,16 @@ FLASH_CASES = {
     "h_bf16_d64_lse_dlse_g4": (2, 256, 256, 8, 2, 64, True, "bf16", True),
     "i_f32_d128_lse_dlse_full": (1, 200, 200, 4, 4, 128, False, "f32",
                                  True),
+    "j_bf16_470m_train": (2, 2048, 2048, 16, 4, 64, True, "bf16", False),
 }
-FLASH_TOL = {"bf16": 2e-2, "f32": 1e-4}
+# Limits on the two errors of flash_errors.  bf16: p and ds are rounded
+# before the products and every output once; f32: summation order only.
+# lse and delta are f32 sums of the same products in both dtypes, so they
+# take the f32 limits.  The "tile" limits sit between the sound kernels'
+# readings and those of the planted faults of phase_flash_faults.
+FLASH_TOL = {"bf16": {"max": 2e-2, "tile": 1.5e-2},
+             "f32": {"max": 1e-4, "tile": 1e-5}}
+FLASH_TILE = 64                  # rows along T, the kernels' tile
 # kernel -> line of the TPU kernel it replaces in
 # kungfu_tpu/ops/flash_attention.py
 FLASH_REPLACES = {"fa_fwd": 133, "fa_delta": 279, "fa_bwd_dq": 317,
@@ -397,12 +408,38 @@ FLASH_REPLACES = {"fa_fwd": 133, "fa_delta": 279, "fa_bwd_dq": 317,
 _DT = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
-def _rel_err(got, want) -> float:
-    return ((got.float() - want.float()).abs().max()
-            / want.float().abs().max().clamp(min=1.0)).item()
+def flash_errors(key: str, got, want) -> dict:
+    """Errors of output ``key`` against its plain version.  "max": the
+    largest error over the largest reference value (at least 1).  "tile":
+    for each FLASH_TILE rows along T (all batches and heads together),
+    ||got - want|| / ||want||, the largest over the tiles.  Under a causal
+    mask the late rows' values are far smaller than the first rows', so
+    "max" cannot see a late tile that is wrong; "tile" can."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise RuntimeError(f"flash {key}: {got.dtype} {tuple(got.shape)} vs "
+                           f"{want.dtype} {tuple(want.shape)}")
+    d, w = got.float() - want.float(), want.float()
+    axis = 2 if key in ("lse", "delta") else 1          # [B, H, T] rows
+    tile = max((dd.norm() / ww.norm().clamp(min=1e-30)).item()
+               for dd, ww in zip(d.split(FLASH_TILE, axis),
+                                 w.split(FLASH_TILE, axis)))
+    return {"max": (d.abs().max() / w.abs().max().clamp(min=1.0)).item(),
+            "tile": tile}
+
+
+def flash_limits(key: str, dt: str) -> dict:
+    return FLASH_TOL["f32" if key in ("lse", "delta") else dt]
+
+
+def flash_over(errs: dict, dt: str) -> dict:
+    """The outputs of ``errs`` (key -> flash_errors) above their limits."""
+    return {k: e for k, e in errs.items()
+            if any(not e[m] <= lim for m, lim in flash_limits(k, dt).items())}
 
 
 def flash_inputs(device, B, Tq, Tk, H, KVH, D, dtype, seed):
+    """q, k, v, the output cotangent (standard normal, in ``dtype``) and
+    an lse cotangent (f32)."""
     g = torch.Generator(device=device).manual_seed(seed)
     mk = lambda *s: torch.randn(s, generator=g, device=device).to(dtype)
     return (mk(B, Tq, H, D), mk(B, Tk, KVH, D), mk(B, Tk, KVH, D),
@@ -410,47 +447,146 @@ def flash_inputs(device, B, Tq, Tk, H, KVH, D, dtype, seed):
                                          device=device))
 
 
+def flash_case(device, name: str) -> dict:
+    """Case ``name`` of FLASH_CASES: out, lse, dq, dk, dv through K1-K4
+    (the autograd function) against autograd through the plain version,
+    same inputs, same dtype.  Returns key -> flash_errors."""
+    B, Tq, Tk, H, KVH, D, causal, dt, use_dlse = FLASH_CASES[name]
+    g = H // KVH
+    q, k, v, do, dlse = flash_inputs(device, B, Tq, Tk, H, KVH, D, _DT[dt],
+                                     100 + list(FLASH_CASES).index(name))
+    res = {}
+    for path in ("kernel", "plain"):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        if path == "kernel":
+            out, lse = FA.flash_attention_with_lse(qq, kk, vv, causal,
+                                                   kv_groups=g)
+        else:
+            out, lse = FA.flash_attention_ref(
+                qq, FA._expand_kv_heads(kk, g), FA._expand_kv_heads(vv, g),
+                causal)
+        loss = (out.float() * do.float()).sum()
+        if use_dlse:
+            loss = loss + (lse * dlse).sum()
+        loss.backward()
+        res[path] = (out.detach(), lse.detach(), qq.grad, kk.grad, vv.grad)
+    return {key: flash_errors(key, got, want) for key, got, want in
+            zip(("out", "lse", "dq", "dk", "dv"), res["kernel"],
+                res["plain"])}
+
+
 def phase_flash_check(device) -> dict:
-    """K1-K4 through the autograd function (forward, dq, dk, dv, lse)
-    against autograd through the plain version, same inputs, same dtype."""
+    """Every case of FLASH_CASES within its limits."""
     errs = {}
-    for i, (name, (B, Tq, Tk, H, KVH, D, causal, dt, use_dlse)) in \
-            enumerate(FLASH_CASES.items()):
-        dtype, tol, g = _DT[dt], FLASH_TOL[dt], H // KVH
-        q, k, v, do, dlse = flash_inputs(device, B, Tq, Tk, H, KVH, D,
-                                         dtype, 100 + i)
-        res = {}
-        for path in ("kernel", "plain"):
-            qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
-            if path == "kernel":
-                out, lse = FA.flash_attention_with_lse(qq, kk, vv, causal,
-                                                       kv_groups=g)
-            else:
-                out, lse = FA.flash_attention_ref(
-                    qq, FA._expand_kv_heads(kk, g),
-                    FA._expand_kv_heads(vv, g), causal)
-            loss = (out.float() * do.float()).sum()
-            if use_dlse:
-                loss = loss + (lse * dlse).sum()
-            loss.backward()
-            res[path] = (out.detach(), lse.detach(), qq.grad, kk.grad,
-                         vv.grad)
-        torch.cuda.synchronize()
-        case = {}
-        for key, got, want in zip(("out", "lse", "dq", "dk", "dv"),
-                                  res["kernel"], res["plain"]):
-            if got.dtype != want.dtype or got.shape != want.shape:
-                raise RuntimeError(f"flash {name} {key}: {got.dtype} "
-                                   f"{tuple(got.shape)} vs {want.dtype} "
-                                   f"{tuple(want.shape)}")
-            case[key] = _rel_err(got, want)
-        errs[name] = case
-        emit({"phase": "flash_check", "case": name, "rel_err": case,
-              "tol": tol})
-        bad = {k_: e for k_, e in case.items() if not e <= tol}
+    for name, case in FLASH_CASES.items():
+        errs[name] = flash_case(device, name)
+        emit({"phase": "flash_check", "case": name, "err": errs[name],
+              "tol": FLASH_TOL[case[7]]})
+        bad = flash_over(errs[name], case[7])
         if bad:
-            raise RuntimeError(f"flash {name}: {bad} above {tol}")
+            raise RuntimeError(f"flash {name}: {bad} above the limits "
+                               f"{FLASH_TOL[case[7]]} (lse, delta: f32)")
     return errs
+
+
+def _plain_chain(q, k, v, do, g, keep):
+    """out, lse, dq, dk, dv by autograd through plain attention (f32
+    scores) under the boolean mask ``keep`` [Tq, Tk]."""
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qq.float(),
+                     FA._expand_kv_heads(kk, g).float()) / math.sqrt(
+                         q.shape[-1])
+    s = torch.where(keep, s, FA.NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]),
+                       FA._expand_kv_heads(vv, g).float()).to(q.dtype)
+    (out.float() * do.float()).sum().backward()
+    return out.detach(), lse.detach(), qq.grad, kk.grad, vv.grad
+
+
+def _tiled_forward(q, k, v, g, keep, rescale: bool):
+    """The online-softmax forward over FLASH_TILE-key tiles; with
+    ``rescale=False`` the output accumulator is not rescaled when the
+    running max rises (a planted fault)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     FA._expand_kv_heads(k, g).float()) / math.sqrt(
+                         q.shape[-1])
+    s = torch.where(keep, s, FA.NEG_INF)
+    ve = FA._expand_kv_heads(v, g).float()
+    m = torch.full(s.shape[:3], -math.inf, device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, device=q.device).permute(0, 2, 1, 3)
+    for j in range(0, s.shape[3], FLASH_TILE):
+        sj = s[..., j:j + FLASH_TILE]
+        m_new = torch.maximum(m, sj.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sj - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p, ve[:, j:j + FLASH_TILE])
+        acc = (acc * alpha[..., None] if rescale else acc) + pv
+        m = m_new
+    return (acc / l[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def phase_flash_faults(device) -> dict:
+    """How far flash_errors' "tile" reading moves for a kernel with a
+    planted fault, at the 470m training shapes: each fault computed with
+    plain PyTorch against the sound plain chain on the same inputs.  Every
+    output's smallest fault reading must lie above its limit, or the
+    check of phase_flash_check could not see that fault."""
+    s = FLASH_470M
+    B, T, H, KVH, D = s["B"], s["Tq"], s["H"], s["KVH"], s["D"]
+    g, dt = H // KVH, "bf16"
+    q, k, v, do, _ = flash_inputs(device, B, T, T, H, KVH, D, s["dtype"], 9)
+    qpos = torch.arange(T, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    causal = qpos >= kpos
+    keys = ("out", "lse", "dq", "dk", "dv")
+    sound = dict(zip(keys, _plain_chain(q, k, v, do, g, causal)))
+    last = T - FLASH_TILE
+    faulty = {
+        # rows past the first tile skip k-tile 0
+        "skip_first_ktile": _plain_chain(
+            q, k, v, do, g,
+            causal & ~((kpos < FLASH_TILE) & (qpos >= FLASH_TILE))),
+        # the last q-tile skips its diagonal (straddling) k-tile
+        "skip_last_diag_ktile": _plain_chain(
+            q, k, v, do, g, causal & ~((kpos >= last) & (qpos >= last))),
+        # K4 sums g - 1 of its g query heads (the last one's dO is 0)
+        "dkv_drop_query_head": _plain_chain(
+            q, k, v, do.unflatten(2, (KVH, g)).index_fill(
+                3, torch.tensor([g - 1], device=device), 0).flatten(2, 3),
+            g, causal),
+    }
+    readings = {name: {key: flash_errors(key, got, sound[key])["tile"]
+                       for key, got in zip(keys, outs)
+                       if not (name == "dkv_drop_query_head"
+                               and key not in ("dk", "dv"))}
+                for name, outs in faulty.items()}
+    with torch.no_grad():
+        readings["no_rescale"] = {"out": flash_errors(
+            "out", _tiled_forward(q, k, v, g, causal, False),
+            sound["out"])["tile"]}
+        tiled_sound = flash_errors(
+            "out", _tiled_forward(q, k, v, g, causal, True),
+            sound["out"])["tile"]
+        delta = FA._delta_plain(sound["out"], do)
+        cut = delta.clone()
+        cut[..., last:] = 0
+        readings["delta_last_tile_unwritten"] = {
+            "delta": flash_errors("delta", cut, delta)["tile"]}
+    least = {}
+    for faults in readings.values():
+        for key, r in faults.items():
+            least[key] = min(least.get(key, math.inf), r)
+    blind = {key: r for key, r in least.items()
+             if not r > flash_limits(key, dt)["tile"]}
+    if blind or not tiled_sound <= flash_limits("out", dt)["tile"]:
+        raise RuntimeError(f"flash limits {FLASH_TOL} cannot see the faults "
+                           f"{blind} (the rescaled tiled forward reads "
+                           f"{tiled_sound})")
+    return {"readings": readings, "least": least,
+            "tiled_forward_sound": tiled_sound}
 
 
 def flash_bound(kernel: str, B, Tq, Tk, H, KVH, D, causal, dtype) -> dict:
@@ -481,9 +617,10 @@ def flash_bound(kernel: str, B, Tq, Tk, H, KVH, D, causal, dtype) -> dict:
 
 def phase_flash_time(device) -> dict:
     """K1-K4 at the 470m training shapes: each kernel against its plain
-    version on the same inputs (max abs error), timed beside its bound
-    and the plain version; SDPA's forward and backward as the library
-    yardstick (the port never calls it)."""
+    version on the same inputs (flash_errors within the limits, and the
+    max abs error for the kernels line), timed beside its bound and the
+    plain version.  Library yardsticks the port never calls: SDPA's
+    forward (K1) and backward (K3 + K4), torch.linalg.vecdot (K2)."""
     s = FLASH_470M
     B, Tq, Tk, H, KVH, D = (s[k] for k in ("B", "Tq", "Tk", "H", "KVH",
                                            "D"))
@@ -492,8 +629,6 @@ def phase_flash_time(device) -> dict:
     plain_fwd = lambda: FA.flash_attention_ref(
         q, FA._expand_kv_heads(k, g), FA._expand_kv_heads(v, g), causal)
     out, lse = FA.flash_forward(q, k, v, causal, g)
-    with torch.no_grad():
-        p_out, p_lse = plain_fwd()
     delta = FA.flash_delta(out, do)
     dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, causal, g)
     dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, causal, g)
@@ -512,24 +647,24 @@ def phase_flash_time(device) -> dict:
                                              causal, g)),
     }
     with torch.no_grad():
-        pdk, pdv = FA._dkv_plain(q, k, v, do, lse, delta, causal, g)
-        errs = {
-            "fa_fwd": max((out.float() - p_out.float()).abs().max().item(),
-                          (lse - p_lse).abs().max().item()),
-            "fa_delta": (delta - FA._delta_plain(out, do)).abs().max()
-            .item(),
-            "fa_bwd_dq": (dq.float() - FA._dq_plain(
-                q, k, v, do, lse, delta, causal, g).float()).abs().max()
-            .item(),
-            "fa_bwd_dkv": max((dk.float() - pdk.float()).abs().max().item(),
-                              (dv.float() - pdv.float()).abs().max()
-                              .item()),
-        }
-    for name, e in errs.items():
-        if not e <= 0.05:          # bf16 outputs of order 1..8: a few ulp
-            raise RuntimeError(f"{name} at the 470m shapes: max abs err {e}")
-    # the yardstick: one SDPA call forward, and its backward (dq, dk, dv
-    # together, so it stands beside K3 + K4)
+        got = {"fa_fwd": {"out": out, "lse": lse},
+               "fa_delta": {"delta": delta}, "fa_bwd_dq": {"dq": dq},
+               "fa_bwd_dkv": {"dk": dk, "dv": dv}}
+        checks, max_abs = {}, {}
+        for name, (_, plain) in calls.items():
+            want = plain()
+            want = want if isinstance(want, tuple) else (want,)
+            checks[name] = {key: flash_errors(key, t, w) for (key, t), w
+                            in zip(got[name].items(), want)}
+            max_abs[name] = max((t.float() - w.float()).abs().max().item()
+                                for t, w in zip(got[name].values(), want))
+            bad = flash_over(checks[name], "bf16")
+            if bad:
+                raise RuntimeError(f"{name} at the 470m shapes: {bad} above "
+                                   f"the limits {FLASH_TOL}")
+    # the yardsticks: one SDPA call forward, and its backward (dq, dk, dv
+    # together, so it stands beside K3 + K4); rowsum(dO * O) in one call
+    # (bf16 [B, T, H] where K2 writes f32 [B, H, T])
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(
@@ -543,20 +678,25 @@ def phase_flash_time(device) -> dict:
     with torch.no_grad():
         for name, (kern, plain) in calls.items():
             recs[name] = {"ms": timer(kern), "plain_ms": timer(plain),
-                          "max_abs_err": errs[name],
+                          "max_abs_err": max_abs[name],
+                          "err": checks[name],
                           **flash_bound(name, **FLASH_470M)}
         recs["fa_fwd"]["library_ms"] = timer(sdpa)
+        recs["fa_delta"]["library_ms"] = timer(
+            lambda: torch.linalg.vecdot(out, do, dim=-1))
     bwd_ms = timer(s_bwd)
-    recs["fa_delta"]["library_ms"] = None
     recs["fa_bwd_dq"]["library_ms"] = bwd_ms
     recs["fa_bwd_dkv"]["library_ms"] = bwd_ms
+    library = {"fa_fwd": "sdpa forward",
+               "fa_delta": "torch.linalg.vecdot(out, dout, dim=-1)",
+               "fa_bwd_dq": "sdpa backward (dq, dk, dv in one call)",
+               "fa_bwd_dkv": "sdpa backward (dq, dk, dv in one call)"}
     for name, rec in recs.items():
         emit({"phase": "flash_time", "kernel": name, **rec,
               "tflops": rec["flops"] / rec["ms"] / 1e9,
-              "library": ("sdpa backward (dq, dk, dv in one call)"
-                          if name in ("fa_bwd_dq", "fa_bwd_dkv") else
-                          "sdpa forward" if name == "fa_fwd" else None)})
+              "library": library[name]})
     return recs
+
 
 # ----------------------------------------------- phase 6: train the 470m
 def _reset_flash_counts() -> None:
@@ -736,6 +876,7 @@ def main() -> int:
           **phase_fused_vs_gather(device)})
 
     phase_flash_check(device)
+    emit({"phase": "flash_faults", **phase_flash_faults(device)})
     flash = phase_flash_time(device)
     train = phase_train_470m(device)
     emit({"phase": "train_470m", **train})

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Every test here needs a CUDA device and skips without one (a CUDA
-kernel has no CPU mode).  The file imports no JAX, so it also runs on a
-GPU machine without it:
+kernel has no CPU mode).  The file imports no JAX (nor does chip_smoke.py,
+whose flash cases it shares), so it also runs on a GPU machine without
+it, from the root of the repo:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -9,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from kungfu_tpu_torch.models import gpt as G
+from kungfu_tpu_torch.ops import flash_attention as FA
 from kungfu_tpu_torch.ops import paged_attention as PA
 from kungfu_tpu_torch.serving import DecodeEngine, Request
 from kungfu_tpu_torch.serving.cache import quantize_kv
@@ -110,70 +113,22 @@ def test_engine_fused_matches_gather_on_card(cuda_device, extra):
 
 
 # ------------------------------------------------- K1-K4 (flash attention)
-FLASH_CASES = [
-    # B, Tq, Tk, H, KVH, D, causal, dtype, dlse
-    (2, 512, 512, 16, 4, 64, True, torch.bfloat16, False),
-    (2, 256, 256, 4, 4, 64, True, torch.float32, False),
-    (2, 384, 384, 4, 4, 128, False, torch.bfloat16, False),
-    (1, 256, 256, 8, 2, 128, True, torch.float32, False),
-    (1, 1000, 1000, 8, 2, 64, True, torch.bfloat16, False),
-    (2, 192, 320, 4, 2, 64, True, torch.float32, False),
-    (1, 320, 200, 4, 1, 128, False, torch.bfloat16, False),
-    (2, 256, 256, 8, 2, 64, True, torch.bfloat16, True),
-    (1, 200, 200, 4, 4, 128, False, torch.float32, True),
-]
-
-
-def _flash_inputs(device, B, Tq, Tk, H, KVH, D, dtype, seed=0):
-    g = torch.Generator(device=device).manual_seed(seed)
-    mk = lambda *s: torch.randn(s, generator=g, device=device).to(dtype)
-    return (mk(B, Tq, H, D), mk(B, Tk, KVH, D), mk(B, Tk, KVH, D),
-            mk(B, Tq, H, D), torch.randn((B, H, Tq), generator=g,
-                                         device=device))
-
-
-@pytest.mark.parametrize("B,Tq,Tk,H,KVH,D,causal,dtype,use_dlse",
-                         FLASH_CASES)
-def test_flash_kernels_match_plain(cuda_device, B, Tq, Tk, H, KVH, D,
-                                   causal, dtype, use_dlse):
+# The cases, the inputs and the error measure are chip_smoke.py's, so the
+# smoke run and these tests hold the kernels to the same limits.
+@pytest.mark.parametrize("name", list(chip_smoke.FLASH_CASES))
+def test_flash_kernels_match_plain(cuda_device, name):
     """out, lse, dq, dk, dv through K1-K4 against autograd through the
-    plain version.  Tolerance relative to the largest reference value:
-    bf16 2e-2 (p and ds rounded before the products, outputs rounded
-    once); f32 1e-4 (summation order)."""
-    from kungfu_tpu_torch.ops import flash_attention as FA
-    g = H // KVH
-    q, k, v, do, dlse = _flash_inputs(cuda_device, B, Tq, Tk, H, KVH, D,
-                                      dtype)
+    plain version, within chip_smoke.FLASH_TOL: the largest error over
+    the largest value, and the relative error of every 64-row tile."""
     before = dict(FA.launches)
-    res = {}
-    for path in ("kernel", "plain"):
-        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
-        if path == "kernel":
-            out, lse = FA.flash_attention_with_lse(qq, kk, vv, causal,
-                                                   kv_groups=g)
-        else:
-            out, lse = FA.flash_attention_ref(
-                qq, FA._expand_kv_heads(kk, g), FA._expand_kv_heads(vv, g),
-                causal)
-        loss = (out.float() * do.float()).sum()
-        if use_dlse:
-            loss = loss + (lse * dlse).sum()
-        loss.backward()
-        res[path] = (out.detach(), lse.detach(), qq.grad, kk.grad, vv.grad)
-    torch.cuda.synchronize()
+    errs = chip_smoke.flash_case(cuda_device, name)
     assert all(FA.launches[n] == before[n] + 1 for n in FA.launches)
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    for got, want in zip(res["kernel"], res["plain"]):
-        assert got.dtype == want.dtype and got.shape == want.shape
-        err = ((got.float() - want.float()).abs().max()
-               / want.float().abs().max().clamp(min=1.0)).item()
-        assert err <= tol
+    assert chip_smoke.flash_over(errs, chip_smoke.FLASH_CASES[name][7]) == {}
 
 
 def test_flash_kernels_reject_bad_inputs(cuda_device):
-    from kungfu_tpu_torch.ops import flash_attention as FA
-    q, k, v, do, _ = _flash_inputs(cuda_device, 1, 64, 64, 4, 2, 64,
-                                   torch.bfloat16)
+    q, k, v, do, _ = chip_smoke.flash_inputs(cuda_device, 1, 64, 64, 4, 2,
+                                             64, torch.bfloat16, seed=0)
     with pytest.raises(ValueError, match="head_dim"):
         FA.flash_forward(q[..., :32].contiguous(), k[..., :32].contiguous(),
                          v[..., :32].contiguous(), True, 2)
