@@ -30,7 +30,20 @@
    compute, f32 AdamW masters), 1 warm-up and 2 timed steps, checking
    that every layer of every microbatch launched K1-K4; profiles one
    microbatch; and trains a full-width 2-layer f32 model for 2 steps with
-   the kernels and with dense attention, which must agree.
+   the kernels and with dense attention, which must agree;
+7. holds K6 (the flash forward's tile loop with the softmax deleted)
+   against its plain version at the roofline's three K6 shapes and a
+   ragged T, per tile of 64 rows, shows with a planted fault (every q-tile
+   skips its last visible k-tile) that the limit would catch it, and times
+   it beside its bound, its plain version and a library form;
+8. runs the kernel roofline (kungfu_tpu_torch.benchmarks.roofline: the
+   matmul and HBM ceilings, flash forward and forward+backward at head_dim
+   64 and 128, K6, SDPA's forward) and reports K1 over K6 (the softmax's
+   share of K1's time), flash over the matmul ceiling, and the measured
+   ceilings beside the data-sheet ones that the bounds use;
+9. trains the head_dim-128 470m (--preset 470m-hd128: 8 heads, 2 KV
+   heads) for 1 warm-up and 2 timed steps, K1-K4 at every layer of every
+   microbatch, and profiles one of its microbatches.
 
 Each phase prints a JSON line.  The last two lines are the kernels record
 and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; so
@@ -40,8 +53,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -51,6 +66,8 @@ import torch
 import torch.nn.functional as F
 
 from kungfu_tpu_torch.benchmarks import gpt as BG
+from kungfu_tpu_torch.benchmarks import roofline as RL
+from kungfu_tpu_torch.benchmarks.timing import Timer
 from kungfu_tpu_torch.models import gpt as G
 from kungfu_tpu_torch.ops import _build
 from kungfu_tpu_torch.ops import flash_attention as FA
@@ -74,34 +91,6 @@ ENGINE = dict(num_slots=8, block_size=32, num_blocks=512, max_len=1024,
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-# ------------------------------------------------------------- timing
-class _Timer:
-    """Median of per-run CUDA-event times (ms) after warm-up, with the
-    L2 cache flushed before each run: in a decode step the other layers'
-    weights pass through L2 between two calls of one layer's attend.  A
-    spin kernel keeps the card busy while the host enqueues the run, so
-    the events time the device work and not the host's launch overhead."""
-
-    def __init__(self, device):
-        self.flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
-
-    def __call__(self, fn, warmup: int = 3, runs: int = 25) -> float:
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(runs):
-            self.flush.zero_()
-            torch.cuda._sleep(1_000_000)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
 
 
 # --------------------------------------------------------- phase 2: K5
@@ -202,7 +191,7 @@ def phase_kernel(device) -> dict:
     # (a) timed at the main path's shapes
     inp = k5_inputs(device, torch.bfloat16, 1, False,
                     np.random.RandomState(1))
-    timer = _Timer(device)
+    timer = Timer(device)
     rec = {"ms": timer(lambda: PA.paged_attention_queries(**inp)),
            "plain_ms": timer(lambda: PA.paged_attention_queries_ref(**inp)),
            "library_ms": timer(lambda: sdpa_yardstick(inp))}
@@ -673,7 +662,7 @@ def phase_flash_time(device) -> dict:
     s_bwd = lambda: torch.autograd.grad(s_out, (qt, kt, vt),
                                         do.transpose(1, 2),
                                         retain_graph=True)
-    timer = _Timer(device)
+    timer = Timer(device)
     recs = {}
     with torch.no_grad():
         for name, (kern, plain) in calls.items():
@@ -704,13 +693,14 @@ def _reset_flash_counts() -> None:
         FA.launches[name] = 0
 
 
-def phase_train_470m(device) -> dict:
+def phase_train(device, preset: str = "470m") -> dict:
     """The main training path: ``python -m kungfu_tpu_torch.benchmarks.gpt
-    --preset 470m`` on the card (64 x 2048 tokens a step in 32
-    microbatches, synchronous-SGD AdamW, bf16 compute over f32 masters),
-    1 warm-up step and 2 timed steps, through the benchmark's own code.
-    Every layer of every microbatch must have launched K1-K4."""
-    args = BG.parse_args(["--preset", "470m", "--warmup-steps", "1",
+    --preset <preset>`` on the card (470m and 470m-hd128: 64 x 2048 tokens
+    a step in 32 microbatches, synchronous-SGD AdamW, bf16 compute over
+    f32 masters), 1 warm-up step and 2 timed steps, through the
+    benchmark's own code.  Every layer of every microbatch must have
+    launched K1-K4."""
+    args = BG.parse_args(["--preset", preset, "--warmup-steps", "1",
                           "--steps", "2", "--device", "cuda"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -723,12 +713,12 @@ def phase_train_470m(device) -> dict:
     short = {k: n for k, n in counts.items() if n < need}
     if short:
         raise RuntimeError(f"flash kernels launched {short} times, the "
-                           f"470m run needed {need} each ({args.n_layers} "
-                           f"layers x {args.accum} microbatches x {steps} "
-                           f"steps)")
+                           f"{preset} run needed {need} each "
+                           f"({args.n_layers} layers x {args.accum} "
+                           f"microbatches x {steps} steps)")
     if not all(math.isfinite(x) for x in out["step_losses"]):
         raise RuntimeError(f"non-finite loss: {out['step_losses']}")
-    return {"tokens_per_s": out["value"],
+    return {"preset": preset, "tokens_per_s": out["value"],
             "model_tflops_per_s": out["model_tflops_per_sec"],
             "mfu": out["model_tflops_per_sec"] * 1e12 / BF16_FLOPS,
             "step_losses": out["step_losses"],
@@ -741,16 +731,16 @@ def phase_train_470m(device) -> dict:
                 "model_tflops_per_sec", "loss", "backend", "device")}}
 
 
-def phase_train_profile_470m(device) -> dict:
-    """Where a 470m microbatch's time goes: one forward + backward of the
-    training loss (2 x 2048 tokens, bf16 compute copy) under
-    torch.profiler.  Device busy share = summed kernel time / wall time
-    (one stream)."""
+def phase_train_profile(device, preset: str = "470m") -> dict:
+    """Where a microbatch's time goes (470m or 470m-hd128): one forward +
+    backward of the training loss (2 x 2048 tokens, bf16 compute copy)
+    under torch.profiler.  Device busy share = summed kernel time / wall
+    time (one stream)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from kungfu_tpu_torch.training import _cast_params
     from kungfu_tpu_torch.utils.tree import tree_leaves
-    args = BG.parse_args(["--preset", "470m", "--device", "cuda"])
+    args = BG.parse_args(["--preset", preset, "--device", "cuda"])
     cfg = BG.make_config(args)
     params = _cast_params(G.init_params(
         torch.Generator(device=device).manual_seed(0), cfg), cfg.dtype)
@@ -830,6 +820,199 @@ def phase_train_flash_vs_dense_f32_2l(device) -> dict:
             "param_share_above_1e-5": off}
 
 
+# ------------------------------------------------- phase 7: K6 (no softmax)
+# The cases, inputs and measure below are shared with
+# tests/test_torch_kernels_cuda.py: the roofline's three K6 shapes and a
+# ragged T.
+NOSOFTMAX_CASES = {
+    # name: B, T, H, D, causal
+    "a_d64_full": (4, 2048, 12, 64, False),
+    "b_d128_full": (4, 2048, 8, 128, False),
+    "c_d64_causal": (4, 2048, 12, 64, True),
+    "d_d64_causal_ragged1000": (1, 1000, 2, 64, True),
+}
+# K6's output is held to FLASH_TOL["bf16"] ("out"): the kernel rounds s to
+# bf16 where its plain version does, and its output once, but sums the
+# f32 products in another order, so an s near a rounding boundary may
+# land one bf16 step apart.
+
+
+# the roofline's K6 cases and their rows in the roofline artifact
+K6_ROWS = {"a_d64_full": "kernel_ceiling_matmul_only_B4_T2048_H12_D64",
+           "b_d128_full": "kernel_ceiling_matmul_only_B4_T2048_H8_D128",
+           "c_d64_causal":
+               "kernel_ceiling_matmul_only_causal_B4_T2048_H12_D64"}
+
+
+def nosoftmax_inputs(device, B, T, H, D, seed):
+    """q, k, v [B, H, T, D], standard normal in bf16."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn((B, H, T, D), generator=g, device=device)
+                 .to(torch.bfloat16) for _ in range(3))
+
+
+def nosoftmax_errors(got, want) -> dict:
+    """flash_errors of K6's [B, H, T, D] output: tiles of 64 rows along T."""
+    return flash_errors("out", got.transpose(1, 2), want.transpose(1, 2))
+
+
+def nosoftmax_case(device, name: str):
+    """Case ``name`` of NOSOFTMAX_CASES through K6 and through its plain
+    version at the kernel's 64 x 64 blocks: (errors, max abs error,
+    (q, k, v), plain output)."""
+    B, T, H, D, causal = NOSOFTMAX_CASES[name]
+    q, k, v = nosoftmax_inputs(device, B, T, H, D,
+                               200 + list(NOSOFTMAX_CASES).index(name))
+    with torch.no_grad():
+        got = RL.nosoftmax_attention(q, k, v, causal)
+        want = RL._nosoftmax_plain(q, k, v, causal)
+    return (nosoftmax_errors(got, want),
+            (got.float() - want.float()).abs().max().item(), (q, k, v), want)
+
+
+def nosoftmax_fault(q, k, v, causal: bool):
+    """K6 with a planted fault, computed by the plain code: every q-tile
+    skips its last visible k-tile (the diagonal one under causal, the
+    last one otherwise)."""
+    T = q.shape[2]
+    keep = RL._block_keep(T, causal, RL.TILE, RL.TILE, q.device)
+    tiles = torch.arange(T, device=q.device) // RL.TILE
+    last = tiles if causal else tiles[-1].expand_as(tiles)
+    return RL._nosoftmax_masked(q, k, v,
+                                keep & (tiles[None, :] != last[:, None]))
+
+
+def phase_nosoftmax_check(device) -> dict:
+    """Every case of NOSOFTMAX_CASES within the bf16 limits, and the
+    planted fault's tile reading above the tile limit in every case."""
+    limit = FLASH_TOL["bf16"]["tile"]
+    res = {}
+    for name, case in NOSOFTMAX_CASES.items():
+        errs, max_abs, (q, k, v), want = nosoftmax_case(device, name)
+        with torch.no_grad():
+            fault = nosoftmax_errors(nosoftmax_fault(q, k, v, case[4]),
+                                     want)["tile"]
+        res[name] = {"err": errs, "max_abs_err": max_abs,
+                     "fault_tile": fault}
+        emit({"phase": "nosoftmax_check", "case": name, **res[name],
+              "tol": FLASH_TOL["bf16"]})
+        if flash_over({"out": errs}, "bf16"):
+            raise RuntimeError(f"K6 {name}: {errs} above the limits "
+                               f"{FLASH_TOL['bf16']}")
+        if not fault > limit:
+            raise RuntimeError(f"K6 {name}: the planted fault reads {fault}, "
+                               f"not above the tile limit {limit}")
+    return res
+
+
+def k6_bound(B, T, H, D, causal) -> dict:
+    """Least time of one K6 call: the products of the visible 64 x 64
+    block pairs (whole, as the kernel computes them) at the bf16 peak,
+    against q, k, v read and out written once over 3.35 TB/s."""
+    pairs = RL._visible_block_pairs(T, causal, RL.TILE, RL.TILE)
+    flops = 4 * B * H * D * RL.TILE * RL.TILE * pairs
+    nbytes = 4 * B * H * T * D * 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def phase_k6_time(device, checks: dict) -> dict:
+    """K6 at the roofline's three shapes, timed beside its bound, its
+    plain version and a library form where one exists: for the
+    non-causal shapes two torch.matmul calls (s comes out in bf16, as K6
+    rounds it); no library call computes the causal block skip."""
+    timer = Timer(device)
+    recs = {}
+    for name in K6_ROWS:
+        B, T, H, D, causal = NOSOFTMAX_CASES[name]
+        q, k, v = nosoftmax_inputs(device, B, T, H, D, 7)
+        with torch.no_grad():
+            rec = {"ms": timer(lambda: RL.nosoftmax_attention(q, k, v,
+                                                              causal)),
+                   "plain_ms": timer(lambda: RL._nosoftmax_plain(q, k, v,
+                                                                 causal)),
+                   "max_abs_err": checks[name]["max_abs_err"],
+                   **k6_bound(B, T, H, D, causal)}
+            if causal:
+                rec["library_ms"] = None
+                rec["library"] = ("none: no library call computes the "
+                                  "causal block skip")
+            else:
+                rec["library_ms"] = timer(lambda: torch.matmul(
+                    torch.matmul(q, k.transpose(-1, -2)), v))
+                rec["library"] = "two torch.matmul calls; no single call"
+        emit({"phase": "k6_time", "case": name, **rec,
+              "tflops_done": rec["flops"] / rec["ms"] / 1e9})
+        recs[name] = rec
+    return recs
+
+
+# ------------------------------------------------------ phase 8: roofline
+ROOFLINE_OPS = (
+    "matmul_4096x4096x4096_bf16",
+    "flash_fwd_B4_T2048_H12_D64", "flash_fwdbwd_B4_T2048_H12_D64",
+    "flash_fwd_B4_T2048_H8_D128", "flash_fwdbwd_B4_T2048_H8_D128",
+    *K6_ROWS.values(),
+    "library_flash_fwd_B4_T2048_H12_D64", "library_flash_fwd_B4_T2048_H8_D128",
+    "hbm_copy_512MiB")
+
+
+def phase_roofline(device, smi: str, k6_times: dict) -> dict:
+    """The roofline's main path, ``kungfu_tpu_torch.benchmarks.roofline``'s
+    main() into a temporary file, with K6's launches counted over that run
+    only.  From its rows: K1 over K6, the time per useful flop of the
+    flash forward over that of its tile loop without the softmax (at D64
+    causal the same work; at D128 the causal K1 against the non-causal
+    K6), so 1 - K6 / K1 is the softmax's share of K1's time; the flash
+    forward over the measured matmul ceiling; and the measured ceilings
+    beside the data-sheet constants the bounds use.  A roofline row
+    flushes L2 once per run of 8 calls, so its later calls may find their
+    inputs in L2; ``k6_l2`` sets each K6 row beside ``k6_times``
+    (k6_time: one call per run, L2 flushed before every call) to show
+    what that costs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "roofline.json")
+        RL.launches["nosoftmax"] = 0       # counts from the main path only
+        RL.main(["--out", path])
+        launches = RL.launches["nosoftmax"]
+        with open(path) as f:
+            doc = json.load(f)
+    rows = {r["op"]: r for r in doc["results"]}
+    missing = [op for op in ROOFLINE_OPS if op not in rows]
+    if missing or launches == 0 or doc["device"] != smi:
+        raise RuntimeError(f"roofline: rows {missing} missing, K6 launched "
+                           f"{launches} times, device {doc['device']!r}")
+    for r in doc["results"]:
+        emit({"phase": "roofline_row", **r})
+    k1_k6 = {}
+    for tag, k1, k6 in (
+            ("d64_causal", "flash_fwd_B4_T2048_H12_D64",
+             K6_ROWS["c_d64_causal"]),
+            ("d128", "flash_fwd_B4_T2048_H8_D128", K6_ROWS["b_d128_full"])):
+        ratio = rows[k6]["tflops"] / rows[k1]["tflops"]
+        k1_k6[tag] = {"k1": k1, "k6": k6, "k1_over_k6": ratio,
+                      "softmax_share": 1 - 1 / ratio}
+    k6_l2 = {name: {"op": op, "flushed_each_call_ms": k6_times[name]["ms"],
+                    "flushed_each_run_ms": rows[op]["ms"],
+                    "each_call_over_each_run":
+                        k6_times[name]["ms"] / rows[op]["ms"]}
+             for name, op in K6_ROWS.items()}
+    mm = rows["matmul_4096x4096x4096_bf16"]["tflops"]
+    hbm = rows["hbm_copy_512MiB"]["gib_per_s"] * 2 ** 30
+    return {"artifact_device": doc["device"], "k6_launches": launches,
+            "k1_over_k6": k1_k6, "k6_l2": k6_l2,
+            "flash_fwd_over_matmul": {
+                "d64": rows["flash_fwd_B4_T2048_H12_D64"]["tflops"] / mm,
+                "d128": rows["flash_fwd_B4_T2048_H8_D128"]["tflops"] / mm},
+            "matmul_tflops": mm, "matmul_over_datasheet": mm * 1e12
+            / BF16_FLOPS, "hbm_tb_per_s": hbm / 1e12,
+            "hbm_over_datasheet": hbm / HBM_BYTES_PER_S,
+            "datasheet": {"bf16_tflops": BF16_FLOPS / 1e12,
+                          "hbm_tb_per_s": HBM_BYTES_PER_S / 1e12}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -878,12 +1061,18 @@ def main() -> int:
     phase_flash_check(device)
     emit({"phase": "flash_faults", **phase_flash_faults(device)})
     flash = phase_flash_time(device)
-    train = phase_train_470m(device)
+    train = phase_train(device)
     emit({"phase": "train_470m", **train})
-    emit({"phase": "train_profile_470m",
-          **phase_train_profile_470m(device)})
+    emit({"phase": "train_profile_470m", **phase_train_profile(device)})
     emit({"phase": "train_flash_vs_dense_f32_2l",
           **phase_train_flash_vs_dense_f32_2l(device)})
+
+    k6 = phase_k6_time(device, phase_nosoftmax_check(device))
+    roof = phase_roofline(device, smi, k6)
+    emit({"phase": "roofline", **roof})
+    emit({"phase": "train_470m_hd128", **phase_train(device, "470m-hd128")})
+    emit({"phase": "train_profile_470m_hd128",
+          **phase_train_profile(device, "470m-hd128")})
 
     print(BG.device_name(device), flush=True)
     kernels = [{
@@ -903,6 +1092,14 @@ def main() -> int:
             "launches": train["launches"][name],
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
+    rec = k6["a_d64_full"]                 # the roofline's first K6 row
+    kernels.append({
+        "name": "fa_nosoftmax", "route": "cuda",
+        "source": "kungfu_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "kungfu_tpu/benchmarks/roofline.py:123",
+        "launches": roof["k6_launches"],
+        **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -43,6 +43,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # q, k, v, dout, lse, delta, dk, dv | qs, ks, vs, dos | ... as dq
         "kft_flash_bwd_dkv": ([_P] * 8 + [_L3] * 4 + [_I] * 8 + [_F, _P],
                               _I),
+        # q, k, v, out | qs, ks, vs, os | B, H, T, D, causal | stream
+        "kft_nosoftmax_fwd": ([_P] * 4 + [_L3] * 4 + [_I] * 5 + [_P], _I),
     },
     "paged_attention": {
         # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, workspace,

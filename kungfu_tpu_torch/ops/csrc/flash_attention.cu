@@ -1,11 +1,14 @@
 // Flash attention for Hopper (sm_90a): the forward and its backward, as
-// four kernels (K1-K4) over [B, T, heads, D] tensors addressed by strides.
+// four kernels (K1-K4) over [B, T, heads, D] tensors addressed by strides,
+// and the forward's tile loop with the softmax deleted (K6), the roofline's
+// ceiling for K1.
 //
 // K1 fa_fwd       replaces _fa_kernel        (kungfu_tpu/ops/flash_attention.py:133)
 // K2 fa_delta     replaces _fa_delta_kernel  (kungfu_tpu/ops/flash_attention.py:279)
 // K3 fa_bwd_dq    replaces _fa_bwd_dq_kernel (kungfu_tpu/ops/flash_attention.py:317,
 //                 with _block_p_ds :288)
 // K4 fa_bwd_dkv   replaces _fa_bwd_dkv_kernel (kungfu_tpu/ops/flash_attention.py:344)
+// K6 fa_nosoftmax replaces _nosoftmax_kernel (kungfu_tpu/benchmarks/roofline.py:123)
 //
 // Numerics are the TPU kernels':
 //   * softmax in base 2: scores s = (q . k) * scale * log2(e), p = exp2(s - m);
@@ -32,6 +35,8 @@
 // What bounds them (the 470m training shapes, B=2, T=2048, H=16, KVH=4,
 // D=64, causal, bf16): K1, K3 and K4 are bound by tensor-core operations
 // (17-34 GFLOP against tens of MB), K2 by bytes (it reads O and dO once).
+// K6 at the roofline's shapes (B=4, T=2048, 12 heads of 64 or 8 of 128,
+// bf16) is bound by operations too (27-69 GFLOP against 50 MB).
 // What this first version does about it: the products run on the tensor
 // cores from shared-memory tiles, the online-softmax state and the
 // accumulators stay in registers, and nothing of size [T, T] ever reaches
@@ -558,6 +563,67 @@ __global__ void __launch_bounds__(kThreads)
                        ik * kBK + warp * 16, p.Tk, dv, 1.f, 1.f);
 }
 
+// ------------------------------------------------------------------ K6
+// K1's tile loop with the online softmax deleted: per visible (q-tile,
+// k-tile) pair s = q k^T in f32, rounded to bf16 through shared memory
+// where K1 sends p, then acc += s v in f32; out is acc rounded to bf16.
+// There is no score scale and no mask inside a tile: causal keeps only the
+// block skip ik * 64 <= iq * 64 + 63, so a tile that straddles the
+// diagonal is computed whole, and the result is the JAX kernel's at
+// bq = bk = 64.  K1 and K6 differ only by the softmax, so their times'
+// ratio is the softmax's cost in this kernel structure.  bf16 only; q, k,
+// v and out are [B, T, H, D] by strides (the roofline passes [B, H, T, D]
+// tensors with their time and head strides swapped).
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    fa_nosoftmax(const Params p) {
+  using T = bf16;
+  constexpr int LD = D + pad<T>(), LP = kBK + pad<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sK = sQ + kBQ * LD;
+  T* sV = sK + kBK * LD;
+  T* sS = sV + kBK * LD;
+
+  const int n_q = (p.Tq + kBQ - 1) / kBQ;
+  const int iq = n_q - 1 - blockIdx.x;       // longest causal rows first
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int warp = threadIdx.x >> 5;
+  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[2];
+  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + h * p.ks[2];
+  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + h * p.vs[2];
+
+  load_tile<T, D>(sQ, qg, p.qs[1], iq * kBQ, p.Tq);
+
+  float acc[D / 8][4];
+  zero(acc);
+  const int n_k = (p.Tk + kBK - 1) / kBK;
+  int k_end = n_k;
+  if (p.causal) {
+    const int last = (iq * kBQ + kBQ - 1) / kBK;   // last visible tile
+    k_end = last + 1 < n_k ? last + 1 : n_k;
+  }
+  for (int ik = 0; ik < k_end; ++ik) {
+    __syncthreads();                 // the previous tile is consumed
+    load_tile<T, D>(sK, kg, p.ks[1], ik * kBK, p.Tk);
+    load_tile<T, D>(sV, vg, p.vs[1], ik * kBK, p.Tk);
+    __syncthreads();
+    float s[kBK / 8][4];
+    zero(s);
+    warp_gemm<T, kBK / 8, D>(s, Mat<T, LD, 1>{sQ + warp * 16 * LD},
+                             Mat<T, LD, 1>{sK});
+    // s, rounded to bf16, through this warp's rows of sS into the SV product
+    store_frag<T, kBK / 8, LP>(sS + warp * 16 * LP, s);
+    __syncwarp();
+    warp_gemm<T, D / 8, kBK>(acc, Mat<T, LP, 1>{sS + warp * 16 * LP},
+                             Mat<T, 1, LD>{sV});
+    __syncwarp();
+  }
+  T* og = static_cast<T*>(p.out) + b * p.os[0] + h * p.os[2];
+  write_rows<T, D / 8>(og, p.os[1], iq * kBQ + warp * 16, p.Tq, acc, 1.f,
+                       1.f);
+}
+
 // ------------------------------------------------------------- launches
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -600,6 +666,18 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t st) {
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Tk + kBK - 1) / kBK, p.B * p.KVH);
   kern<<<grid, kThreads, smem, st>>>(p, p.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_nosoftmax(const Params& p, cudaStream_t st) {
+  constexpr size_t LD = D + pad<bf16>(), LP = kBK + pad<bf16>();
+  const size_t smem = sizeof(bf16) * ((kBQ + 2 * kBK) * LD + kBQ * LP);
+  auto kern = fa_nosoftmax<D>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Tq + kBQ - 1) / kBQ, p.B * p.H);
+  kern<<<grid, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -747,4 +825,28 @@ extern "C" int kft_flash_bwd_dkv(const void* q, const void* k,
   set3(p.dos, dos);
   return static_cast<int>(
       launch_dkv_any(p, D, dtype, static_cast<cudaStream_t>(stream)));
+}
+
+// K6: out = (bf16(q k^T) v) from bf16 q, k, v, all four [B, T, H, D] by
+// (batch, time, head) strides; causal skips the k-tiles wholly above the
+// diagonal and nothing else.
+extern "C" int kft_nosoftmax_fwd(const void* q, const void* k, const void* v,
+                                 void* out, const long long* qs,
+                                 const long long* ks, const long long* vs,
+                                 const long long* os, int B, int H, int T,
+                                 int D, int causal, void* stream) {
+  if (B == 0 || H == 0 || T == 0) return 0;
+  Params p = make_params(B, H, H, T, T, causal, 0.f);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
+  set3(p.qs, qs);
+  set3(p.ks, ks);
+  set3(p.vs, vs);
+  set3(p.os, os);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return static_cast<int>(launch_nosoftmax<64>(p, st));
+  if (D == 128) return static_cast<int>(launch_nosoftmax<128>(p, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

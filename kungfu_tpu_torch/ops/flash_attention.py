@@ -150,8 +150,8 @@ def _check(name: str, tensors: dict, dtype=None):
             raise TypeError(f"{name}: {key} dtype {t.dtype}, expected "
                             f"{dtype}")
         if t.dim() != 4:
-            raise ValueError(f"{name}: {key} must be [B, T, heads, D], got "
-                             f"shape {tuple(t.shape)}")
+            raise ValueError(f"{name}: {key} must be 4-D with head_dim "
+                             f"last, got shape {tuple(t.shape)}")
         if t.shape[-1] not in HEAD_DIMS:
             raise ValueError(f"{name}: head_dim {t.shape[-1]} not in "
                              f"{HEAD_DIMS}")

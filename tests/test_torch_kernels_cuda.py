@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
+from kungfu_tpu_torch.benchmarks import roofline as RL
 from kungfu_tpu_torch.models import gpt as G
 from kungfu_tpu_torch.ops import flash_attention as FA
 from kungfu_tpu_torch.ops import paged_attention as PA
@@ -144,3 +145,28 @@ def test_flash_kernels_reject_bad_inputs(cuda_device):
     out, lse = FA.flash_forward(q, k, v, True, 2)
     with pytest.raises(ValueError, match="row statistic"):
         FA.flash_bwd_dq(q, k, v, do, lse.transpose(1, 2), lse, True, 2)
+
+
+# ------------------------------------------------------ K6 (no softmax)
+# chip_smoke.py's K6 cases, inputs and measure (the roofline's three K6
+# shapes and a ragged T), held to the flash bf16 limits.
+@pytest.mark.parametrize("name", list(chip_smoke.NOSOFTMAX_CASES))
+def test_nosoftmax_kernel_matches_plain(cuda_device, name):
+    before = RL.launches["nosoftmax"]
+    errs, _, _, _ = chip_smoke.nosoftmax_case(cuda_device, name)
+    assert RL.launches["nosoftmax"] == before + 1
+    assert chip_smoke.flash_over({"out": errs}, "bf16") == {}
+
+
+def test_nosoftmax_kernel_rejects_bad_inputs(cuda_device):
+    q, k, v = chip_smoke.nosoftmax_inputs(cuda_device, 1, 128, 2, 64, seed=0)
+    with pytest.raises(ValueError, match="blocks"):
+        RL.nosoftmax_attention(q, k, v, True, bq=128, bk=128)
+    with pytest.raises(TypeError):
+        RL.nosoftmax_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        RL.nosoftmax_attention(q[..., :32].contiguous(),
+                               k[..., :32].contiguous(),
+                               v[..., :32].contiguous())
+    with pytest.raises(ValueError):
+        RL.nosoftmax_attention(q, k.cpu(), v)
