@@ -23,8 +23,9 @@
    cotangent, the 470m training shapes -- per tile of 64 rows, shows with
    planted faults (a skipped k-tile, a missing rescale, a dropped query
    head) that the limits would catch them, and times each kernel at the
-   470m training shapes beside its bound, its plain version and a
-   library call;
+   470m training shapes, and K2-K4 at the 470m-hd128 ones, beside its
+   bound, its plain version and a library call, with K2 + K3 + K4 summed
+   beside one SDPA backward;
 6. trains the 470m GPT through kungfu_tpu_torch.benchmarks.gpt's code
    (--preset 470m: 64 x 2048 tokens a step in 32 microbatches, bf16
    compute, f32 AdamW masters), 1 warm-up and 2 timed steps, checking
@@ -381,6 +382,28 @@ FLASH_CASES = {
     "i_f32_d128_lse_dlse_full": (1, 200, 200, 4, 4, 128, False, "f32",
                                  True),
     "j_bf16_470m_train": (2, 2048, 2048, 16, 4, 64, True, "bf16", False),
+    # K4's clusters: g = 8 (the largest portable cluster) and g = 16 (MQA
+    # at H = 16, past it: each rank sums two query heads)
+    "k_bf16_d128_g8_cluster8": (1, 320, 320, 16, 2, 128, True, "bf16",
+                                False),
+    "l_bf16_d64_g16_mqa": (2, 200, 200, 16, 1, 64, True, "bf16", False),
+    "m_bf16_470m_hd128_train": (2, 2048, 2048, 8, 2, 128, True, "bf16",
+                                False),
+    # causal with Tq != Tk both ways: K4's column statistics and q range
+    "n_bf16_d64_causal_tq192_tk320": (2, 192, 320, 8, 2, 64, True, "bf16",
+                                      False),
+    "o_bf16_d128_causal_tq320_tk200": (1, 320, 200, 4, 2, 128, True,
+                                       "bf16", False),
+    # T = 1 with an lse cotangent: without one every gradient is 0 up to
+    # rounding (a softmax over one key), which no relative limit can hold
+    "p_bf16_d64_t1_lse_dlse": (2, 1, 1, 8, 2, 64, True, "bf16", True),
+    "q_bf16_d128_t65_lse_dlse": (1, 65, 65, 8, 2, 128, True, "bf16", True),
+    # clusters whose size does not divide K4's 64 rows: g = 12 takes C = 6
+    # ranks of two heads (11 rows each, the last 9), g = 3 takes C = 3
+    "r_bf16_d64_g12_cluster6": (1, 130, 130, 12, 1, 64, True, "bf16",
+                                False),
+    "s_bf16_d128_g3_cluster3_full": (2, 96, 96, 6, 2, 128, False, "bf16",
+                                     False),
 }
 # Limits on the two errors of flash_errors.  bf16: p and ds are rounded
 # before the products and every output once; f32: summation order only.
@@ -604,16 +627,27 @@ def flash_bound(kernel: str, B, Tq, Tk, H, KVH, D, causal, dtype) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def phase_flash_time(device) -> dict:
-    """K1-K4 at the 470m training shapes: each kernel against its plain
-    version on the same inputs (flash_errors within the limits, and the
-    max abs error for the kernels line), timed beside its bound and the
-    plain version.  Library yardsticks the port never calls: SDPA's
-    forward (K1) and backward (K3 + K4), torch.linalg.vecdot (K2)."""
-    s = FLASH_470M
-    B, Tq, Tk, H, KVH, D = (s[k] for k in ("B", "Tq", "Tk", "H", "KVH",
-                                           "D"))
-    causal, dtype, g = s["causal"], s["dtype"], H // KVH
+# the shapes phase_flash_time times: the 470m training shapes (every
+# kernel) and the 470m-hd128 ones (8 heads of 128, 2 KV heads: the
+# backward, K2-K4)
+FLASH_TIME_SHAPES = {
+    "470m": (FLASH_470M, ("fa_fwd", "fa_delta", "fa_bwd_dq", "fa_bwd_dkv")),
+    "470m_hd128": (dict(FLASH_470M, H=8, KVH=2, D=128),
+                   ("fa_delta", "fa_bwd_dq", "fa_bwd_dkv")),
+}
+BWD = ("fa_delta", "fa_bwd_dq", "fa_bwd_dkv")
+
+
+def flash_time_shape(device, timer, shape: dict, kernels) -> dict:
+    """``kernels`` at ``shape``: each against its plain version on the
+    same inputs (flash_errors within the limits, and the max abs error),
+    timed beside its bound and the plain version.  Library yardsticks the
+    port never calls: SDPA's forward (K1) and backward (K3 + K4; it also
+    computes delta), torch.linalg.vecdot (K2).  When K2-K4 are all timed,
+    adds "bwd": K2 + K3 + K4 summed beside the SDPA backward."""
+    B, Tq, Tk, H, KVH, D = (shape[k] for k in ("B", "Tq", "Tk", "H", "KVH",
+                                               "D"))
+    causal, dtype, g = shape["causal"], shape["dtype"], H // KVH
     q, k, v, do, _ = flash_inputs(device, B, Tq, Tk, H, KVH, D, dtype, 7)
     plain_fwd = lambda: FA.flash_attention_ref(
         q, FA._expand_kv_heads(k, g), FA._expand_kv_heads(v, g), causal)
@@ -635,13 +669,13 @@ def phase_flash_time(device) -> dict:
                        lambda: FA._dkv_plain(q, k, v, do, lse, delta,
                                              causal, g)),
     }
+    got = {"fa_fwd": {"out": out, "lse": lse},
+           "fa_delta": {"delta": delta}, "fa_bwd_dq": {"dq": dq},
+           "fa_bwd_dkv": {"dk": dk, "dv": dv}}
+    checks, max_abs = {}, {}
     with torch.no_grad():
-        got = {"fa_fwd": {"out": out, "lse": lse},
-               "fa_delta": {"delta": delta}, "fa_bwd_dq": {"dq": dq},
-               "fa_bwd_dkv": {"dk": dk, "dv": dv}}
-        checks, max_abs = {}, {}
-        for name, (_, plain) in calls.items():
-            want = plain()
+        for name in kernels:
+            want = calls[name][1]()
             want = want if isinstance(want, tuple) else (want,)
             checks[name] = {key: flash_errors(key, t, w) for (key, t), w
                             in zip(got[name].items(), want)}
@@ -649,42 +683,62 @@ def phase_flash_time(device) -> dict:
                                 for t, w in zip(got[name].values(), want))
             bad = flash_over(checks[name], "bf16")
             if bad:
-                raise RuntimeError(f"{name} at the 470m shapes: {bad} above "
-                                   f"the limits {FLASH_TOL}")
+                raise RuntimeError(f"{name} at {shape}: {bad} above the "
+                                   f"limits {FLASH_TOL}")
     # the yardsticks: one SDPA call forward, and its backward (dq, dk, dv
     # together, so it stands beside K3 + K4); rowsum(dO * O) in one call
     # (bf16 [B, T, H] where K2 writes f32 [B, H, T])
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
     s_out = sdpa()
     s_bwd = lambda: torch.autograd.grad(s_out, (qt, kt, vt),
                                         do.transpose(1, 2),
                                         retain_graph=True)
-    timer = Timer(device)
+    library = {"fa_fwd": ("sdpa forward", lambda: timer(sdpa)),
+               "fa_delta": ("torch.linalg.vecdot(out, dout, dim=-1)",
+                            lambda: timer(lambda: torch.linalg.vecdot(
+                                out, do, dim=-1)))}
     recs = {}
     with torch.no_grad():
-        for name, (kern, plain) in calls.items():
+        for name in kernels:
+            kern, plain = calls[name]
             recs[name] = {"ms": timer(kern), "plain_ms": timer(plain),
                           "max_abs_err": max_abs[name],
                           "err": checks[name],
-                          **flash_bound(name, **FLASH_470M)}
-        recs["fa_fwd"]["library_ms"] = timer(sdpa)
-        recs["fa_delta"]["library_ms"] = timer(
-            lambda: torch.linalg.vecdot(out, do, dim=-1))
+                          **flash_bound(name, **shape)}
+            if name in library:
+                recs[name]["library"] = library[name][0]
+                recs[name]["library_ms"] = library[name][1]()
     bwd_ms = timer(s_bwd)
-    recs["fa_bwd_dq"]["library_ms"] = bwd_ms
-    recs["fa_bwd_dkv"]["library_ms"] = bwd_ms
-    library = {"fa_fwd": "sdpa forward",
-               "fa_delta": "torch.linalg.vecdot(out, dout, dim=-1)",
-               "fa_bwd_dq": "sdpa backward (dq, dk, dv in one call)",
-               "fa_bwd_dkv": "sdpa backward (dq, dk, dv in one call)"}
-    for name, rec in recs.items():
-        emit({"phase": "flash_time", "kernel": name, **rec,
-              "tflops": rec["flops"] / rec["ms"] / 1e9,
-              "library": library[name]})
+    for name in ("fa_bwd_dq", "fa_bwd_dkv"):
+        if name in recs:
+            recs[name]["library"] = "sdpa backward (dq, dk, dv in one call)"
+            recs[name]["library_ms"] = bwd_ms
+    if all(name in recs for name in BWD):
+        bound = [flash_bound(name, **shape) for name in BWD]
+        recs["bwd"] = {
+            "ms": sum(recs[name]["ms"] for name in BWD),
+            "bound_ms": sum(b["bound_ms"] for b in bound),
+            "flops": sum(b["flops"] for b in bound),
+            "library": "sdpa backward (delta, dq, dk, dv in one call)",
+            "library_ms": bwd_ms}
     return recs
+
+
+def phase_flash_time(device) -> dict:
+    """K1-K4 at the 470m training shapes and K2-K4 at the 470m-hd128 ones
+    (flash_time_shape), one line per kernel and shape.  Returns
+    {shape: {kernel: record}}."""
+    timer = Timer(device)
+    out = {}
+    for tag, (shape, kernels) in FLASH_TIME_SHAPES.items():
+        out[tag] = flash_time_shape(device, timer, shape, kernels)
+        for name, rec in out[tag].items():
+            emit({"phase": "flash_time", "shape": tag, "kernel": name,
+                  **rec, "tflops": rec["flops"] / rec["ms"] / 1e9})
+    return out
 
 
 # ----------------------------------------------- phase 6: train the 470m
@@ -1084,7 +1138,7 @@ def main() -> int:
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
         "bound_by": k5["bound_by"], "library_ms": k5["library_ms"]}]
     for name, line in FLASH_REPLACES.items():
-        rec = flash[name]
+        rec = flash["470m"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "kungfu_tpu_torch/ops/csrc/flash_attention.cu",

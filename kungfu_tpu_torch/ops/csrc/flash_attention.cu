@@ -14,18 +14,19 @@
 //   * softmax in base 2: scores s = (q . k) * scale * log2(e), p = exp2(s - m);
 //   * the causal mask is qpos >= kpos, both counted from 0 (also when
 //     Tq != Tk); masked scores are -1e30, not -inf;
-//   * products take the input dtype and accumulate in f32 (bf16 through
-//     mma.sync m16n8k16 on the tensor cores; f32 with scalar f32 FMAs, so
-//     there is no TF32 anywhere);
+//   * products take the input dtype and accumulate in f32 (bf16 on the
+//     tensor cores, through mma.sync m16n8k16 or, in K3 and K4, wgmma
+//     m64nNk16; f32 with scalar f32 FMAs, so there is no TF32 anywhere);
 //   * p is rounded to the input dtype before P.V and before dv += P^T dO;
 //     ds is rounded before dq += ds K and dk += ds^T q;
 //   * each output is written once, in the input dtype; lse is emitted in
 //     natural log, m / log2(e) + log(max(l, 1e-30)), as [B, H, Tq] f32;
 //   * GQA: query head h reads KV head h / (H / KVH); K4 sums the g query
-//     heads of a KV head in its f32 accumulators and writes compact dk/dv
-//     (what _compact_kv_grad computes after the TPU kernel), with no atomics.
+//     heads of a KV head in f32 and writes compact dk/dv once (what
+//     _compact_kv_grad computes after the TPU kernel), with no atomics.
 //
-// Tiles: 64 query rows by 64 keys, 4 warps of 16 rows each.  Rows past T
+// Tiles: 64 query rows by 64 keys, 4 warps of 16 rows each (the bf16 K4
+// takes its queries QN at a time, BwdCfg below).  Rows past T
 // are zero-filled on the way into shared memory and masked, so any T
 // works (the TPU's fit_block multiple-of-8 rule does not apply).  The
 // causal classifier causal_tile_class (the TPU's _causal_tile_classes)
@@ -37,12 +38,28 @@
 // (17-34 GFLOP against tens of MB), K2 by bytes (it reads O and dO once).
 // K6 at the roofline's shapes (B=4, T=2048, 12 heads of 64 or 8 of 128,
 // bf16) is bound by operations too (27-69 GFLOP against 50 MB).
-// What this first version does about it: the products run on the tensor
-// cores from shared-memory tiles, the online-softmax state and the
-// accumulators stay in registers, and nothing of size [T, T] ever reaches
-// device memory.  What it leaves for later: staging is synchronous (no
-// cp.async / TMA double buffering), fragments are read with 32-bit shared
-// loads (no ldmatrix), and wgmma / warp specialisation are not used.
+//
+// K1, K2, K6 and the f32 K3/K4 (the first version): the products run on
+// the tensor cores through mma.sync (bf16) from synchronously staged
+// shared-memory tiles read with 32-bit loads; the online-softmax state
+// and the accumulators stay in registers, and nothing of size [T, T] ever
+// reaches device memory.
+//
+// The bf16 K3 and K4, redesigned for Hopper: one warpgroup per block
+// issues every product as wgmma (s and dp with both operands in shared
+// memory; dq, dk, dv with p / ds as the A operand straight from the
+// accumulator registers); tiles arrive through cp.async rings, in the
+// 128-byte-swizzled layout that wgmma reads, while earlier tiles are
+// computed.  K4 runs one block per (k-tile, query head), k-tile 0 first,
+// and sums a KV head's query heads in a thread-block cluster through
+// distributed shared memory, in a fixed order and without atomics.
+// What still bounds them: inside a block the chain s -> p -> ds ->
+// products is serial (only p overlaps dp), so the tensor cores wait on
+// exp2 and the element-wise work, which only the other blocks on the SM
+// hide; K3 and K4 both recompute s and dp (7 products where one fused
+// kernel would do 5).  Left for later: TMA loads and warp specialisation
+// (a producer warp, consumer warpgroups taking turns), and the same
+// redesign for K1 and K6.
 //
 // Built by kungfu_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -51,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -63,6 +82,9 @@ constexpr int kBQ = 64;       // query rows per tile (4 warps x 16)
 constexpr int kBK = 64;       // keys per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
+// cp.async ring depth of the bf16 K3/K4: 2, 3 and 4 stages measured the
+// same, so the next tile's copy overlaps the current tile's products
+constexpr int kStages = 2;
 
 using bf16 = __nv_bfloat16;
 
@@ -260,6 +282,246 @@ __device__ __forceinline__ void write_rows(T* out, long long st, int row0,
   }
 }
 
+// ------------------------------------------- Hopper primitives (bf16 only)
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// cp.async, 16 bytes (cache-global) or 4 bytes; a source that is not
+// `in` reads nothing and the destination is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Columns [16 kk, 16 kk + 16) of a warp's [16, 8 NT] accumulator, rounded
+// to bf16, as the A fragment of the next product: the m16n8 accumulator
+// layout of n-tiles 2kk and 2kk + 1 is the m16n8k16 A layout.
+template <int NT>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&c)[NT][4], int kk) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// Whether the (query span, key span) block needs the elementwise mask;
+// only called for spans with a visible pair.
+__device__ __forceinline__ bool span_masked(const Params& p, int q_lo, int nq,
+                                            int k_lo, int nk) {
+  return (p.causal && k_lo + nk - 1 > q_lo) || q_lo + nq > p.Tq ||
+         k_lo + nk > p.Tk;
+}
+
+// ------------------------------------------------ wgmma (bf16 K3 and K4)
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of the warpgroup's wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// what cp.async wrote (the generic proxy) becomes visible to wgmma's
+// reads of shared memory (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keep the compiler from moving accesses to d across a wgmma's window
+template <int NT>
+__device__ __forceinline__ void reg_fence(float (&d)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// wgmma.mma_async m64nNk16: bf16 in, f32 accumulators d[N / 8][4] in the
+// m16n8 layout of each warp's 16 rows (warp w of the warpgroup holds rows
+// 16w to 16w + 15).  ss: A and B from shared memory by descriptor, both
+// K-major (s and dp: N = 64 or K4's q-tile width 32); rs: A from
+// registers (each warp's m16n8k16 A fragment) and B from shared memory,
+// MN-major, imm-trans-b = 1 (dq, dk, dv: N = D).  acc = 0 overwrites d.
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[4][4], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[8][4], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[8][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void rs(float (&d)[16][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+// A wgmma tile of ROWS rows by D bf16 columns: D / 64 blocks of ROWS rows
+// of 128 bytes; 16-byte chunk c of a row (c < 8 within its block) is
+// stored at chunk c ^ (row % 8): the 128-byte swizzle, each block 1024-byte
+// aligned.  The same
+// tile is a K-major operand (rows = M or N, columns = k) and an MN-major
+// one (rows = k, columns = N).
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_sw128(bf16* s, const bf16* g,
+                                                long long st, int t0,
+                                                int T_len) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = t0 + r < T_len;
+    cp_async16(s + (c >> 3) * ROWS * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3),
+               g + (in ? (t0 + r) * st : 0) + c * 8, in);
+  }
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), 128-byte swizzle.
+__device__ __forceinline__ uint64_t sw128_desc(const bf16* ptr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(ptr) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | static_cast<uint64_t>(1)
+                                                     << 62;
+}
+// K-major operand: columns [k0, k0 + 16) of every row (8-row groups 1024
+// bytes apart).
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k(const bf16* s, int k0) {
+  return sw128_desc(s + (k0 >> 6) * ROWS * 64 + (k0 & 63), 16, 1024);
+}
+// MN-major operand: rows [r0, r0 + 16) as k, every column as n (64-column
+// blocks ROWS * 128 bytes apart).
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* s, int r0) {
+  return sw128_desc(s + r0 * 64, ROWS * 128, 1024);
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: results below 2^-126
+// flush to 0, where exp2f returns a denormal)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* ptr) {
+  return ptr + ((1024 - (smem_addr(ptr) & 1023)) & 1023);
+}
+
 // ------------------------------------------------------------------ K1
 // One thread block per (q-tile, b * H + h); loops over the visible k-tiles
 // with the online-softmax state (m, l) and the output accumulator in
@@ -419,12 +681,14 @@ __device__ __forceinline__ void block_p_ds(
     }
 }
 
-// ------------------------------------------------------------------ K3
-// One thread block per (q-tile, b * H + h); loops over the visible
-// k-tiles; dq stays in f32 registers and is written once.
-template <typename T, int D>
+// ------------------------------------------------------------ K3 (f32)
+// The first version's K3, kept for f32 (the correctness cases): one
+// thread block per (q-tile, b * H + h); loops over the visible k-tiles;
+// dq stays in f32 registers and is written once.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    fa_bwd_dq(const Params p, float scale_log2) {
+    fa_bwd_dq_f32(const Params p, float scale_log2) {
+  using T = float;
   constexpr int LD = D + pad<T>(), LP = kBK + pad<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -485,15 +749,17 @@ __global__ void __launch_bounds__(kThreads)
                        iq * kBQ + warp * 16, p.Tq, dq, 1.f, 1.f);
 }
 
-// ------------------------------------------------------------------ K4
-// One thread block per (k-tile, b * KVH + kv head); loops over the g
+// ------------------------------------------------------------ K4 (f32)
+// The first version's K4, kept for f32 (the correctness cases).  One
+// thread block per (k-tile, b * KVH + kv head); loops over the g
 // query heads of the KV head and their visible q-tiles.  Per pair: the
 // warps first own 16 query rows each and write p and ds (rounded to T) to
 // shared memory; then they own 16 keys each and accumulate dv += p^T dO,
 // dk += ds^T q in f32 registers.  Compact dk/dv are written once.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    fa_bwd_dkv(const Params p, float scale_log2) {
+    fa_bwd_dkv_f32(const Params p, float scale_log2) {
+  using T = float;
   constexpr int LD = D + pad<T>(), LP = kBK + pad<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);
@@ -561,6 +827,344 @@ __global__ void __launch_bounds__(kThreads)
                        ik * kBK + warp * 16, p.Tk, dk, 1.f, 1.f);
   write_rows<T, D / 8>(static_cast<T*>(p.dv) + ob, ost,
                        ik * kBK + warp * 16, p.Tk, dv, 1.f, 1.f);
+}
+
+// The end of K4 (bf16): each block of a cluster holds its query heads'
+// dk and dv partials for one k-tile in registers.  They go to its shared
+// memory (f32 [2][64][D + 8]), the cluster meets, and rank r sums rows
+// [r R, r R + R) over the ranks in rank order through distributed shared
+// memory, rounds once and writes them; a second meeting keeps every
+// block's shared memory alive until the others have read it.  The order
+// of the sums is fixed, so the result is the same bits on every run.
+template <int D>
+__device__ __forceinline__ void cluster_sum_write(
+    const float (&dk)[D / 8][4], const float (&dv)[D / 8][4],
+    unsigned char* smem, const Params& p, int b, int kvh, int ik) {
+  namespace cg = cooperative_groups;
+  constexpr int LDP = D + 8;          // f32 row padding: no bank conflicts
+  float* sP = reinterpret_cast<float*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  __syncthreads();                    // the staged tiles are consumed
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int off = (warp * 16 + g + 8 * h) * LDP + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(sP + off) =
+          make_float2(dk[j][2 * h], dk[j][2 * h + 1]);
+      *reinterpret_cast<float2*>(sP + kBK * LDP + off) =
+          make_float2(dv[j][2 * h], dv[j][2 * h + 1]);
+    }
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  const int C = static_cast<int>(cl.num_blocks());
+  const int r = static_cast<int>(cl.block_rank());
+  const int R = (kBK + C - 1) / C;
+  constexpr int Q4 = D / 4;
+  for (int i = threadIdx.x; i < 2 * R * Q4; i += kThreads) {
+    const int which = i / (R * Q4), rem = i % (R * Q4);
+    const int row = r * R + rem / Q4, c = (rem % Q4) * 4;
+    const int key = ik * kBK + row;
+    if (row >= kBK || key >= p.Tk) continue;
+    const int off = which * kBK * LDP + row * LDP + c;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int src = 0; src < C; ++src) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(cl.map_shared_rank(sP, src) + off);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(acc.x, acc.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(acc.z, acc.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&lo);
+    u.y = *reinterpret_cast<const uint32_t*>(&hi);
+    bf16* out = static_cast<bf16*>(which ? p.dv : p.dk) +
+                ((static_cast<long long>(b) * p.Tk + key) * p.KVH + kvh) * D +
+                c;
+    *reinterpret_cast<uint2*>(out) = u;
+  }
+  cl.sync();
+}
+
+
+// ------------------------------------------------------ K3 (bf16, wgmma)
+// One block (one warpgroup: warp w owns query rows 16w to 16w + 15) per
+// (q-tile, b * H + h), over the visible k-tiles; grid x = b * H + h, y =
+// q-tiles from the last (the longest under the causal mask) down.  q and
+// dO are staged once; K and V of the next k-tile stream in through a
+// cp.async ring.  Per k-tile: s = q k^T and dp = dO v^T by
+// wgmma from shared memory, as two groups so that p is computed while dp
+// is in flight; ds = p (dp - delta) scale; dq += ds K with ds, rounded to
+// bf16, as the A operand from registers and K MN-major.  dq stays in f32
+// registers and is written once.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    fa_bwd_dq(const Params p, float scale_log2) {
+  constexpr int KS = D / 16, NK = kBK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* sdO = sQ + kBQ * D;
+  bf16* sKV = sdO + kBQ * D;   // stage s: K at s * 2 * kBK * D, V after
+
+  const int n_q = (p.Tq + kBQ - 1) / kBQ;
+  const int iq = n_q - 1 - blockIdx.y;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ks[0] +
+                   kvh * p.ks[2];
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vs[0] +
+                   kvh * p.vs[2];
+  const int n_k = (p.Tk + kBK - 1) / kBK;
+  int k_end = n_k;
+  if (p.causal) {
+    const int last = (iq * kBQ + kBQ - 1) / kBK;
+    k_end = last + 1 < n_k ? last + 1 : n_k;
+  }
+  auto stage_kv = [&](int ik) {   // K and V of k-tile ik into its stage
+    bf16* sK = sKV + (ik % kStages) * 2 * kBK * D;
+    load_tile_sw128<D, kBK>(sK, kg, p.ks[1], ik * kBK, p.Tk);
+    load_tile_sw128<D, kBK>(sK + kBK * D, vg, p.vs[1], ik * kBK, p.Tk);
+  };
+  load_tile_sw128<D, kBQ>(sQ, static_cast<const bf16*>(p.q) + b * p.qs[0] +
+                                  h * p.qs[2],
+                          p.qs[1], iq * kBQ, p.Tq);
+  load_tile_sw128<D, kBQ>(sdO, static_cast<const bf16*>(p.dout) +
+                                   b * p.dos[0] + h * p.dos[2],
+                          p.dos[1], iq * kBQ, p.Tq);
+  for (int i = 0; i < kStages - 1; ++i) {   // the first k-tiles in flight
+    if (i < k_end) stage_kv(i);
+    cp_async_commit();
+  }
+
+  const int row_base = iq * kBQ + warp * 16 + g;
+  const long long rs = (static_cast<long long>(b) * p.H + h) * p.Tq;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_base + 8 * r;
+    lse2[r] = row < p.Tq ? p.lse_in[rs + row] * kLog2e : 0.f;
+    dl[r] = row < p.Tq ? p.delta[rs + row] : 0.f;
+  }
+  float dq[D / 8][4], s[NK][4], dp[NK][4];
+  zero(dq);
+  zero(s);
+  zero(dp);
+  for (int ik = 0; ik < k_end; ++ik) {
+    // k-tile ik has landed, and every warp is done with k-tile ik - 1,
+    // whose stage now takes k-tile ik + kStages - 1
+    cp_async_wait<kStages - 2>();
+    fence_async_smem();
+    __syncthreads();
+    if (ik + kStages - 1 < k_end) stage_kv(ik + kStages - 1);
+    cp_async_commit();
+    const bf16* sK = sKV + (ik % kStages) * 2 * kBK * D;
+    const bf16* sV = sK + kBK * D;
+    // s = q k^T and dp = dO v^T as two groups: p is computed while dp
+    // is still in flight
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<kBK>::ss(s, desc_k<kBQ>(sQ, 16 * kk), desc_k<kBK>(sK, 16 * kk),
+                     kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<kBK>::ss(dp, desc_k<kBQ>(sdO, 16 * kk),
+                     desc_k<kBK>(sV, 16 * kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    reg_fence(s);
+    const bool masked = tile_masked(p, iq, ik);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (masked && !pair_visible(p, row_base + 8 * (e >> 1),
+                                    ik * kBK + 8 * j + 2 * t + (e & 1)))
+          x = kNegInf;
+        s[j][e] = fast_exp2(x - lse2[e >> 1]);
+      }
+    wgmma_wait<0>();
+    reg_fence(dp);
+    uint32_t a[kBK / 16][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = s[j][e] * (dp[j][e] - dl[e >> 1]) * p.scale;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) acc_to_a<NK>(a[kk], dp, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      Wgmma<D>::rs(dq, a[kk], desc_mn<kBK>(sK, 16 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dq);
+  }
+  cp_async_wait<0>();
+  bf16* dqg = static_cast<bf16*>(p.dq) +
+              static_cast<long long>(b) * p.Tq * p.H * D + h * D;
+  write_rows<bf16, D / 8>(dqg, static_cast<long long>(p.H) * D,
+                          iq * kBQ + warp * 16, p.Tq, dq, 1.f, 1.f);
+}
+
+// ------------------------------------------------------ K4 (bf16, wgmma)
+// One block (one warpgroup: warp w owns keys 16w to 16w + 15) per
+// (k-tile, query head).  The blocks of one KV head's g query heads form a
+// thread-block cluster (at most 8; each rank takes g / C heads when g >
+// 8) and sum their dk/dv through distributed shared memory at the end
+// (cluster_sum_write).  Grid x = (b * KVH + kvh) * C + rank, y = k-tile:
+// k-tile 0, which sees every q-tile under the causal mask, launches
+// first.  K and V are staged once; q, dO, lse and delta of the next
+// (query head, q-tile) item stream in through a cp.async ring.  The
+// products are transposed, keys as rows: per item of QN queries s^T and
+// dp^T, then p^T and ds^T in registers (lse and delta belong to the
+// columns and are read from shared memory), then dv and dk.
+template <int D, int QN, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    fa_bwd_dkv(const Params p, float scale_log2) {
+  constexpr int KS = D / 16, NQ = QN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  // kStages stages of [q | dO] (QN rows each), then K, V, then kStages
+  // stages of [lse | delta] (QN each)
+  bf16* sQdO = reinterpret_cast<bf16*>(base);
+  bf16* sK = sQdO + kStages * 2 * QN * D;
+  bf16* sV = sK + kBK * D;
+  float* sLD = reinterpret_cast<float*>(sV + kBK * D);
+
+  const int ik = blockIdx.y;
+  const int C = static_cast<int>(cooperative_groups::this_cluster()
+                                     .num_blocks());
+  const int rank = blockIdx.x % C, bk = blockIdx.x / C;
+  const int b = bk / p.KVH, kvh = bk % p.KVH;
+  const int G = p.H / p.KVH, per = G / C;   // query heads of this block
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_q = (p.Tq + QN - 1) / QN;
+  const int q_start = p.causal ? (ik * kBK) / QN : 0;
+  const int n_vis = n_q > q_start ? n_q - q_start : 0;
+  const int n_items = per * n_vis;     // (query head, q-tile) pairs
+  // q, dO, lse and delta of item `it` (head rank * per + it / n_vis,
+  // q-tile q_start + it % n_vis) into stage it % kStages
+  auto stage_item = [&](int it) {
+    const int h = kvh * G + rank * per + it / n_vis;
+    const int iq = q_start + it % n_vis;
+    bf16* sQ = sQdO + (it % kStages) * 2 * QN * D;
+    float* sL = sLD + (it % kStages) * 2 * QN;
+    load_tile_sw128<D, QN>(sQ, static_cast<const bf16*>(p.q) + b * p.qs[0] +
+                                   h * p.qs[2],
+                           p.qs[1], iq * QN, p.Tq);
+    load_tile_sw128<D, QN>(sQ + QN * D,
+                           static_cast<const bf16*>(p.dout) + b * p.dos[0] +
+                               h * p.dos[2],
+                           p.dos[1], iq * QN, p.Tq);
+    const long long rs = (static_cast<long long>(b) * p.H + h) * p.Tq;
+    for (int i = threadIdx.x; i < QN; i += kThreads) {
+      const int row = iq * QN + i;
+      const bool in = row < p.Tq;
+      cp_async4(sL + i, p.lse_in + rs + (in ? row : 0), in);
+      cp_async4(sL + QN + i, p.delta + rs + (in ? row : 0), in);
+    }
+  };
+  load_tile_sw128<D, kBK>(sK, static_cast<const bf16*>(p.k) + b * p.ks[0] +
+                                  kvh * p.ks[2],
+                          p.ks[1], ik * kBK, p.Tk);
+  load_tile_sw128<D, kBK>(sV, static_cast<const bf16*>(p.v) + b * p.vs[0] +
+                                  kvh * p.vs[2],
+                          p.vs[1], ik * kBK, p.Tk);
+  for (int i = 0; i < kStages - 1; ++i) {   // the first items in flight
+    if (i < n_items) stage_item(i);
+    cp_async_commit();
+  }
+
+  float dk[D / 8][4], dv[D / 8][4], st[NQ][4], dpt[NQ][4];
+  zero(dk);
+  zero(dv);
+  zero(st);
+  zero(dpt);
+  const int key0 = ik * kBK + warp * 16 + g;   // this lane's keys: +0, +8
+  for (int it = 0; it < n_items; ++it) {
+    // item it has landed, and every warp is done with item it - 1, whose
+    // stage now takes item it + kStages - 1
+    cp_async_wait<kStages - 2>();
+    fence_async_smem();
+    __syncthreads();
+    if (it + kStages - 1 < n_items) stage_item(it + kStages - 1);
+    cp_async_commit();
+    const int iq = q_start + it % n_vis;
+    const bf16* sQ = sQdO + (it % kStages) * 2 * QN * D;
+    const bf16* sdO = sQ + QN * D;
+    const float* sL = sLD + (it % kStages) * 2 * QN;   // lse, then delta
+    const float* sDl = sL + QN;
+    // s^T = K q^T and dp^T = V dO^T (keys are the rows) as two groups:
+    // p^T is computed while dp^T is in flight.  Then dv += p^T dO and
+    // dk += ds^T q, with p^T and ds^T rounded to bf16 as the A operand
+    // from registers and dO, q MN-major.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<QN>::ss(st, desc_k<kBK>(sK, 16 * kk), desc_k<QN>(sQ, 16 * kk),
+                    kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<QN>::ss(dpt, desc_k<kBK>(sV, 16 * kk), desc_k<QN>(sdO, 16 * kk),
+                    kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    reg_fence(st);
+    const bool masked = span_masked(p, iq * QN, QN, ik * kBK, kBK);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sL + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = st[j][e] * scale_log2;
+        if (masked && !pair_visible(p, iq * QN + 8 * j + 2 * t + (e & 1),
+                                    key0 + 8 * (e >> 1)))
+          x = kNegInf;
+        st[j][e] = fast_exp2(x - ((e & 1) ? l2.y : l2.x) * kLog2e);
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(dpt);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(sDl + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[j][e] =
+            st[j][e] * (dpt[j][e] - ((e & 1) ? d2.y : d2.x)) * p.scale;
+    }
+    uint32_t ap[QN / 16][4], as[QN / 16][4];
+#pragma unroll
+    for (int kq = 0; kq < QN / 16; ++kq) {
+      acc_to_a<NQ>(ap[kq], st, kq);
+      acc_to_a<NQ>(as[kq], dpt, kq);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kq = 0; kq < QN / 16; ++kq)
+      Wgmma<D>::rs(dv, ap[kq], desc_mn<QN>(sdO, 16 * kq));
+#pragma unroll
+    for (int kq = 0; kq < QN / 16; ++kq)
+      Wgmma<D>::rs(dk, as[kq], desc_mn<QN>(sQ, 16 * kq));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dv);
+    reg_fence(dk);
+  }
+  cp_async_wait<0>();
+  cluster_sum_write<D>(dk, dv, base, p, b, kvh, ik);
 }
 
 // ------------------------------------------------------------------ K6
@@ -644,11 +1248,28 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Params& p, cudaStream_t st) {
-  constexpr size_t LD = D + pad<T>(), LP = kBK + pad<T>();
-  const size_t smem = sizeof(T) * ((2 * kBQ + 2 * kBK) * LD + kBQ * LP);
-  auto kern = fa_bwd_dq<T, D>;
+// The bf16 K4's choices per head_dim: the q-tile width and the blocks per
+// SM that __launch_bounds__ holds registers to.  At D = 64 a fourth block
+// per SM pays, and 32-query items keep K4 within its 128 registers
+// without spilling (the build log's ptxas lines); at D = 128 registers
+// allow two blocks whatever the width, and 64-query items halve the
+// items' fixed costs.
+template <int D>
+struct BwdCfg;
+template <>
+struct BwdCfg<64> {
+  static constexpr int kDkvQN = 32, kDkvMinB = 4;
+};
+template <>
+struct BwdCfg<128> {
+  static constexpr int kDkvQN = 64, kDkvMinB = 1;
+};
+
+template <int D>
+cudaError_t launch_dq_f32(const Params& p, cudaStream_t st) {
+  constexpr size_t LD = D + pad<float>(), LP = kBK + pad<float>();
+  const size_t smem = sizeof(float) * ((2 * kBQ + 2 * kBK) * LD + kBQ * LP);
+  auto kern = fa_bwd_dq_f32<D>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Tq + kBQ - 1) / kBQ, p.B * p.H);
@@ -656,17 +1277,74 @@ cudaError_t launch_dq(const Params& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Params& p, cudaStream_t st) {
-  constexpr size_t LD = D + pad<T>(), LP = kBK + pad<T>();
+template <int D>
+cudaError_t launch_dq_bf16(const Params& p, cudaStream_t st) {
+  const size_t smem = sizeof(bf16) * (2 * kBQ + 2 * kStages * kBK) * D +
+                      1024;                       // + 1024: the alignment
+  auto kern = fa_bwd_dq<D>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.B * p.H, (p.Tq + kBQ - 1) / kBQ);
+  kern<<<grid, kThreads, smem, st>>>(p, p.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_f32(const Params& p, cudaStream_t st) {
+  constexpr size_t LD = D + pad<float>(), LP = kBK + pad<float>();
   const size_t smem =
-      sizeof(T) * ((2 * kBQ + 2 * kBK) * LD + 2 * kBQ * LP);
-  auto kern = fa_bwd_dkv<T, D>;
+      sizeof(float) * ((2 * kBQ + 2 * kBK) * LD + 2 * kBQ * LP);
+  auto kern = fa_bwd_dkv_f32<D>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Tk + kBK - 1) / kBK, p.B * p.KVH);
   kern<<<grid, kThreads, smem, st>>>(p, p.scale * kLog2e);
   return cudaGetLastError();
+}
+
+// The cluster size of K4 (bf16): the largest divisor of g = H / KVH that
+// is at most 8, the portable limit.
+int dkv_cluster(const Params& p) {
+  const int G = p.H / p.KVH;
+  int c = G < 8 ? G : 8;
+  while (G % c) --c;
+  return c;
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t st) {
+  constexpr int QN = BwdCfg<D>::kDkvQN;
+  // the staged tiles, and the f32 dk/dv partials that reuse them at the end
+  const size_t stage = sizeof(bf16) * (2 * kStages * QN + 2 * kBK) * D +
+                       sizeof(float) * 2 * kStages * QN;
+  const size_t part = sizeof(float) * 2 * kBK * (D + 8);
+  const size_t smem = (stage > part ? stage : part) + 1024;
+  auto kern = fa_bwd_dkv<D, QN, BwdCfg<D>::kDkvMinB>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const int C = dkv_cluster(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.B * p.KVH * C, (p.Tk + kBK - 1) / kBK);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster whose blocks cannot be resident together never launches
+  static int fits[9] = {};
+  if (fits[C] == 0) {
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+    if (e != cudaSuccess) return e;
+    if (n < 1) return cudaErrorInvalidConfiguration;
+    fits[C] = n;
+  }
+  return cudaLaunchKernelEx(&cfg, kern, p, p.scale * kLog2e);
 }
 
 template <int D>
@@ -692,9 +1370,22 @@ cudaError_t launch_nosoftmax(const Params& p, cudaStream_t st) {
     return cudaErrorInvalidValue;                                          \
   }
 KFT_DISPATCH(launch_fwd)
-KFT_DISPATCH(launch_dq)
-KFT_DISPATCH(launch_dkv)
 #undef KFT_DISPATCH
+
+// K3 and K4: f32 keeps the first version's kernels, bf16 runs the
+// Hopper ones.
+#define KFT_DISPATCH_BWD(fn)                                             \
+  cudaError_t fn##_any(const Params& p, int D, int dtype,                  \
+                       cudaStream_t st) {                                  \
+    if (dtype == 0 && D == 64) return fn##_f32<64>(p, st);                 \
+    if (dtype == 0 && D == 128) return fn##_f32<128>(p, st);               \
+    if (dtype == 1 && D == 64) return fn##_bf16<64>(p, st);                \
+    if (dtype == 1 && D == 128) return fn##_bf16<128>(p, st);              \
+    return cudaErrorInvalidValue;                                          \
+  }
+KFT_DISPATCH_BWD(launch_dq)
+KFT_DISPATCH_BWD(launch_dkv)
+#undef KFT_DISPATCH_BWD
 
 Params make_params(int B, int H, int KVH, int Tq, int Tk, int causal,
                    float scale) {

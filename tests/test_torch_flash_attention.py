@@ -63,11 +63,8 @@ def test_forward_and_grads_match_jax_multiblock(causal, bq, bk):
         _close(got, want)
 
 
-@pytest.mark.parametrize("g", [1, 2, 4])
-def test_gqa_compact_kv_grads_match_jax(g):
-    """kv_groups g: compact k/v in, compact dk/dv out, equal to the JAX
-    op's (the group-sum of the expanded gradients)."""
-    q, k, v, do, _ = _inputs(Tq=32, g=g, seed=2)
+def _gqa_grads_match_jax(H, g, seed):
+    q, k, v, do, _ = _inputs(Tq=32, H=H, g=g, seed=seed)
 
     def jloss(q, k, v):
         return jnp.sum(JF.flash_attention(q, k, v, True, 16, 16,
@@ -81,6 +78,21 @@ def test_gqa_compact_kv_grads_match_jax(g):
     assert tk.grad.shape == tk.shape
     for got, want in zip((tq.grad, tk.grad, tv.grad), jg):
         _close(got, want)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_gqa_compact_kv_grads_match_jax(g):
+    """kv_groups g: compact k/v in, compact dk/dv out, equal to the JAX
+    op's (the group-sum of the expanded gradients)."""
+    _gqa_grads_match_jax(4, g, seed=2)
+
+
+@pytest.mark.parametrize("g", [8, 16])
+def test_gqa_wide_groups_match_jax(g):
+    """Groups of 8 and 16 query heads per KV head (H = 16, so g = 16 is
+    multi-query): the group sizes at and past the largest cluster that
+    sums them in K4 on the card."""
+    _gqa_grads_match_jax(16, g, seed=7)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -135,23 +147,36 @@ def test_plain_version_matches_jnp_twin(Tq, Tk):
         _close(tl, jl)
 
 
-def test_kernel_plain_backward_matches_autograd_of_ref():
-    """K2-K4's plain versions (what the kernels compute) equal autograd
-    through the plain forward, for a ragged Tq != Tk GQA case."""
-    q, k, v, do, dlse = _inputs(Tq=37, Tk=53, g=2, seed=6)
+def _plain_backward_matches_autograd(Tq, Tk, H, g, seed):
+    q, k, v, do, dlse = _inputs(Tq=Tq, Tk=Tk, H=H, g=g, seed=seed)
     tq, tk, tv = _t(q), _t(k), _t(v)
-    out, lse = TF.flash_attention_ref(tq, TF._expand_kv_heads(tk, 2),
-                                      TF._expand_kv_heads(tv, 2), True)
+    out, lse = TF.flash_attention_ref(tq, TF._expand_kv_heads(tk, g),
+                                      TF._expand_kv_heads(tv, g), True)
     ((out * torch.from_numpy(do)).sum()
      + (lse * torch.from_numpy(dlse)).sum()).backward()
     o, l = out.detach(), lse.detach()
     delta = TF.flash_delta(o, torch.from_numpy(do), torch.from_numpy(dlse))
     dq = TF.flash_bwd_dq(_t(q, False), _t(k, False), _t(v, False),
-                         torch.from_numpy(do), l, delta, True, 2)
+                         torch.from_numpy(do), l, delta, True, g)
     dk, dv = TF.flash_bwd_dkv(_t(q, False), _t(k, False), _t(v, False),
-                              torch.from_numpy(do), l, delta, True, 2)
+                              torch.from_numpy(do), l, delta, True, g)
     for got, want in ((dq, tq.grad), (dk, tk.grad), (dv, tv.grad)):
         _close(got, want)
+
+
+def test_kernel_plain_backward_matches_autograd_of_ref():
+    """K2-K4's plain versions (what the kernels compute) equal autograd
+    through the plain forward, for a ragged Tq != Tk GQA case."""
+    _plain_backward_matches_autograd(37, 53, 4, 2, seed=6)
+
+
+@pytest.mark.parametrize("Tq,Tk,H,g", [(1, 1, 8, 4), (65, 65, 8, 4),
+                                       (40, 72, 16, 16), (72, 40, 16, 8)])
+def test_kernel_plain_backward_edge_shapes(Tq, Tk, H, g):
+    """The same at the shapes chip_smoke adds for K3/K4's schedule: T = 1
+    and T = 65 (one row past a 64-row tile), causal Tq != Tk both ways,
+    groups of 16 and 8 query heads."""
+    _plain_backward_matches_autograd(Tq, Tk, H, g, seed=8)
 
 
 def test_wrappers_reject_bad_shapes():

@@ -127,6 +127,25 @@ def test_flash_kernels_match_plain(cuda_device, name):
     assert chip_smoke.flash_over(errs, chip_smoke.FLASH_CASES[name][7]) == {}
 
 
+@pytest.mark.parametrize("H,KVH,D", [(16, 4, 64), (8, 2, 128), (16, 1, 64)],
+                         ids=["470m", "470m_hd128", "mqa_g16"])
+def test_flash_backward_repeats_bitwise(cuda_device, H, KVH, D):
+    """K3 and K4 launched twice on the same inputs give the same bits:
+    K4 sums a KV head's query heads through its cluster in a fixed rank
+    order, with no atomics, and K3 writes each dq once."""
+    B, T, g = 2, 512, H // KVH
+    q, k, v, do, _ = chip_smoke.flash_inputs(cuda_device, B, T, T, H, KVH, D,
+                                             torch.bfloat16, seed=3)
+    out, lse = FA.flash_forward(q, k, v, True, g)
+    delta = FA.flash_delta(out, do)
+    runs = [(FA.flash_bwd_dq(q, k, v, do, lse, delta, True, g),
+             *FA.flash_bwd_dkv(q, k, v, do, lse, delta, True, g))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
 def test_flash_kernels_reject_bad_inputs(cuda_device):
     q, k, v, do, _ = chip_smoke.flash_inputs(cuda_device, 1, 64, 64, 4, 2,
                                              64, torch.bfloat16, seed=0)
