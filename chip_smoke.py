@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. builds every CUDA kernel of the port from this checkout (nvcc, into
-   kungfu_tpu_torch/_build/) and prints the card's name and power limit;
+   kungfu_tpu_torch/_build/), prints each kernel's registers and spills
+   (failing if a bf16 K1 or K6 spills) and the card's name and power
+   limit;
 2. holds the paged-decode kernel (K5) against its plain PyTorch version on
    the card at the 470m serving shapes -- bf16, f32, multi-query, int8
    pool, poisoned scratch block -- and times it beside its bound, the
@@ -21,11 +23,11 @@
    against their plain version through autograd -- bf16 and f32, head_dim
    64 and 128, causal and not, GQA, a ragged T, Tq != Tk, an lse
    cotangent, the 470m training shapes -- per tile of 64 rows, shows with
-   planted faults (a skipped k-tile, a missing rescale, a dropped query
-   head) that the limits would catch them, and times each kernel at the
-   470m training shapes, and K2-K4 at the 470m-hd128 ones, beside its
-   bound, its plain version and a library call, with K2 + K3 + K4 summed
-   beside one SDPA backward;
+   planted faults (a skipped k-tile, a missing rescale, a p V product that
+   misses its rescale, a dropped query head) that the limits would catch
+   them, and times each kernel at the 470m and at the 470m-hd128
+   training shapes beside its bound, its plain version and a library
+   call, with K2 + K3 + K4 summed beside one SDPA backward;
 6. trains the 470m GPT through kungfu_tpu_torch.benchmarks.gpt's code
    (--preset 470m: 64 x 2048 tokens a step in 32 microbatches, bf16
    compute, f32 AdamW masters), 1 warm-up and 2 timed steps, checking
@@ -33,10 +35,10 @@
    microbatch; and trains a full-width 2-layer f32 model for 2 steps with
    the kernels and with dense attention, which must agree;
 7. holds K6 (the flash forward's tile loop with the softmax deleted)
-   against its plain version at the roofline's three K6 shapes and a
-   ragged T, per tile of 64 rows, shows with a planted fault (every q-tile
-   skips its last visible k-tile) that the limit would catch it, and times
-   it beside its bound, its plain version and a library form;
+   against its plain version at the roofline's four K6 shapes and ragged
+   T, per tile of 64 rows, shows with a planted fault (every q-tile skips
+   its last visible k-tile) that the limit would catch it, and times it
+   beside its bound, its plain version and a library form;
 8. runs the kernel roofline (kungfu_tpu_torch.benchmarks.roofline: the
    matmul and HBM ceilings, flash forward and forward+backward at head_dim
    64 and 128, K6, SDPA's forward) and reports K1 over K6 (the softmax's
@@ -55,6 +57,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -66,6 +69,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from kungfu_tpu_torch.benchmarks import flash_variants as FV
 from kungfu_tpu_torch.benchmarks import gpt as BG
 from kungfu_tpu_torch.benchmarks import roofline as RL
 from kungfu_tpu_torch.benchmarks.timing import Timer
@@ -404,6 +408,17 @@ FLASH_CASES = {
                                 False),
     "s_bf16_d128_g3_cluster3_full": (2, 96, 96, 6, 2, 128, False, "bf16",
                                      False),
+    # K1's wgmma tile loop: MQA at D128 (one K/V ring feeds 16 query
+    # heads), and causal T = 130 and 257, where the last q-tile is ragged
+    # and ends on another k-tile than the one before it
+    "t_bf16_d128_g16_mqa_causal": (1, 256, 256, 16, 1, 128, True, "bf16",
+                                   False),
+    "u_bf16_d64_causal_t130": (2, 130, 130, 8, 2, 64, True, "bf16", False),
+    "v_bf16_d128_causal_t130": (2, 130, 130, 4, 2, 128, True, "bf16",
+                                False),
+    "w_bf16_d64_causal_t257": (1, 257, 257, 8, 4, 64, True, "bf16", False),
+    "x_bf16_d128_causal_t257": (1, 257, 257, 4, 1, 128, True, "bf16",
+                                False),
 }
 # Limits on the two errors of flash_errors.  bf16: p and ds are rounded
 # before the products and every output once; f32: summation order only.
@@ -516,10 +531,12 @@ def _plain_chain(q, k, v, do, g, keep):
     return out.detach(), lse.detach(), qq.grad, kk.grad, vv.grad
 
 
-def _tiled_forward(q, k, v, g, keep, rescale: bool):
-    """The online-softmax forward over FLASH_TILE-key tiles; with
-    ``rescale=False`` the output accumulator is not rescaled when the
-    running max rises (a planted fault)."""
+def _tiled_forward(q, k, v, g, keep, fault=None):
+    """The online-softmax forward over FLASH_TILE-key tiles, sound or with
+    a planted fault: "no_rescale", the output accumulator never takes the
+    correction when the running max rises; "pv_after_rescale", K1's
+    pipelined order broken: the previous tile's p V, still in flight when
+    this tile's max rises, lands after acc's rescale and misses it."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                      FA._expand_kv_heads(k, g).float()) / math.sqrt(
                          q.shape[-1])
@@ -528,6 +545,7 @@ def _tiled_forward(q, k, v, g, keep, rescale: bool):
     m = torch.full(s.shape[:3], -math.inf, device=s.device)
     l = torch.zeros_like(m)
     acc = torch.zeros(q.shape, device=q.device).permute(0, 2, 1, 3)
+    pending = torch.zeros_like(acc)
     for j in range(0, s.shape[3], FLASH_TILE):
         sj = s[..., j:j + FLASH_TILE]
         m_new = torch.maximum(m, sj.amax(dim=-1))
@@ -535,8 +553,14 @@ def _tiled_forward(q, k, v, g, keep, rescale: bool):
         p = torch.exp(sj - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
         pv = torch.einsum("bhqk,bkhd->bhqd", p, ve[:, j:j + FLASH_TILE])
-        acc = (acc * alpha[..., None] if rescale else acc) + pv
+        if fault == "no_rescale":
+            acc = acc + pv
+        elif fault == "pv_after_rescale":
+            acc, pending = acc * alpha[..., None] + pending, pv
+        else:
+            acc = acc * alpha[..., None] + pv
         m = m_new
+    acc = acc + pending
     return (acc / l[..., None]).permute(0, 2, 1, 3).to(q.dtype)
 
 
@@ -576,12 +600,12 @@ def phase_flash_faults(device) -> dict:
                                and key not in ("dk", "dv"))}
                 for name, outs in faulty.items()}
     with torch.no_grad():
-        readings["no_rescale"] = {"out": flash_errors(
-            "out", _tiled_forward(q, k, v, g, causal, False),
-            sound["out"])["tile"]}
+        for fault in ("no_rescale", "pv_after_rescale"):
+            readings[fault] = {"out": flash_errors(
+                "out", _tiled_forward(q, k, v, g, causal, fault),
+                sound["out"])["tile"]}
         tiled_sound = flash_errors(
-            "out", _tiled_forward(q, k, v, g, causal, True),
-            sound["out"])["tile"]
+            "out", _tiled_forward(q, k, v, g, causal), sound["out"])["tile"]
         delta = FA._delta_plain(sound["out"], do)
         cut = delta.clone()
         cut[..., last:] = 0
@@ -627,13 +651,11 @@ def flash_bound(kernel: str, B, Tq, Tk, H, KVH, D, causal, dtype) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-# the shapes phase_flash_time times: the 470m training shapes (every
-# kernel) and the 470m-hd128 ones (8 heads of 128, 2 KV heads: the
-# backward, K2-K4)
+# the shapes phase_flash_time times, every kernel at each: the 470m
+# training shapes and the 470m-hd128 ones (8 heads of 128, 2 KV heads)
 FLASH_TIME_SHAPES = {
-    "470m": (FLASH_470M, ("fa_fwd", "fa_delta", "fa_bwd_dq", "fa_bwd_dkv")),
-    "470m_hd128": (dict(FLASH_470M, H=8, KVH=2, D=128),
-                   ("fa_delta", "fa_bwd_dq", "fa_bwd_dkv")),
+    "470m": FLASH_470M,
+    "470m_hd128": dict(FLASH_470M, H=8, KVH=2, D=128),
 }
 BWD = ("fa_delta", "fa_bwd_dq", "fa_bwd_dkv")
 
@@ -728,13 +750,13 @@ def flash_time_shape(device, timer, shape: dict, kernels) -> dict:
 
 
 def phase_flash_time(device) -> dict:
-    """K1-K4 at the 470m training shapes and K2-K4 at the 470m-hd128 ones
+    """K1-K4 at the 470m and at the 470m-hd128 training shapes
     (flash_time_shape), one line per kernel and shape.  Returns
     {shape: {kernel: record}}."""
     timer = Timer(device)
     out = {}
-    for tag, (shape, kernels) in FLASH_TIME_SHAPES.items():
-        out[tag] = flash_time_shape(device, timer, shape, kernels)
+    for tag, shape in FLASH_TIME_SHAPES.items():
+        out[tag] = flash_time_shape(device, timer, shape, FLASH_REPLACES)
         for name, rec in out[tag].items():
             emit({"phase": "flash_time", "shape": tag, "kernel": name,
                   **rec, "tflops": rec["flops"] / rec["ms"] / 1e9})
@@ -876,14 +898,18 @@ def phase_train_flash_vs_dense_f32_2l(device) -> dict:
 
 # ------------------------------------------------- phase 7: K6 (no softmax)
 # The cases, inputs and measure below are shared with
-# tests/test_torch_kernels_cuda.py: the roofline's three K6 shapes and a
-# ragged T.
+# tests/test_torch_kernels_cuda.py: the roofline's four K6 shapes and
+# ragged T at both head dims, causal and not.
 NOSOFTMAX_CASES = {
     # name: B, T, H, D, causal
     "a_d64_full": (4, 2048, 12, 64, False),
     "b_d128_full": (4, 2048, 8, 128, False),
     "c_d64_causal": (4, 2048, 12, 64, True),
     "d_d64_causal_ragged1000": (1, 1000, 2, 64, True),
+    "e_d128_causal": (4, 2048, 8, 128, True),
+    "f_d128_causal_t65": (2, 65, 3, 128, True),
+    "g_d64_causal_t130": (2, 130, 3, 64, True),
+    "h_d128_full_t200": (1, 200, 2, 128, False),
 }
 # K6's output is held to FLASH_TOL["bf16"] ("out"): the kernel rounds s to
 # bf16 where its plain version does, and its output once, but sums the
@@ -895,7 +921,9 @@ NOSOFTMAX_CASES = {
 K6_ROWS = {"a_d64_full": "kernel_ceiling_matmul_only_B4_T2048_H12_D64",
            "b_d128_full": "kernel_ceiling_matmul_only_B4_T2048_H8_D128",
            "c_d64_causal":
-               "kernel_ceiling_matmul_only_causal_B4_T2048_H12_D64"}
+               "kernel_ceiling_matmul_only_causal_B4_T2048_H12_D64",
+           "e_d128_causal":
+               "kernel_ceiling_matmul_only_causal_B4_T2048_H8_D128"}
 
 
 def nosoftmax_inputs(device, B, T, H, D, seed):
@@ -973,7 +1001,7 @@ def k6_bound(B, T, H, D, causal) -> dict:
 
 
 def phase_k6_time(device, checks: dict) -> dict:
-    """K6 at the roofline's three shapes, timed beside its bound, its
+    """K6 at the roofline's four shapes, timed beside its bound, its
     plain version and a library form where one exists: for the
     non-causal shapes two torch.matmul calls (s comes out in bf16, as K6
     rounds it); no library call computes the causal block skip."""
@@ -1017,9 +1045,10 @@ def phase_roofline(device, smi: str, k6_times: dict) -> dict:
     """The roofline's main path, ``kungfu_tpu_torch.benchmarks.roofline``'s
     main() into a temporary file, with K6's launches counted over that run
     only.  From its rows: K1 over K6, the time per useful flop of the
-    flash forward over that of its tile loop without the softmax (at D64
-    causal the same work; at D128 the causal K1 against the non-causal
-    K6), so 1 - K6 / K1 is the softmax's share of K1's time; the flash
+    flash forward over that of its tile loop without the softmax (causal
+    against causal at D64 and D128 the same work, so 1 - K6 / K1 is the
+    softmax's share of K1's time; at D128 also the causal K1 against the
+    non-causal K6, which adds the causal structure's cost); the flash
     forward over the measured matmul ceiling; and the measured ceilings
     beside the data-sheet constants the bounds use.  A roofline row
     flushes L2 once per run of 8 calls, so its later calls may find their
@@ -1044,6 +1073,8 @@ def phase_roofline(device, smi: str, k6_times: dict) -> dict:
     for tag, k1, k6 in (
             ("d64_causal", "flash_fwd_B4_T2048_H12_D64",
              K6_ROWS["c_d64_causal"]),
+            ("d128_causal", "flash_fwd_B4_T2048_H8_D128",
+             K6_ROWS["e_d128_causal"]),
             ("d128", "flash_fwd_B4_T2048_H8_D128", K6_ROWS["b_d128_full"])):
         ratio = rows[k6]["tflops"] / rows[k1]["tflops"]
         k1_k6[tag] = {"k1": k1, "k6": k6, "k1_over_k6": ratio,
@@ -1067,6 +1098,14 @@ def phase_roofline(device, smi: str, k6_times: dict) -> dict:
                           "hbm_tb_per_s": HBM_BYTES_PER_S / 1e12}}
 
 
+def fwd_spills(ptxas) -> list:
+    """The ptxas lines (FV.ptxas_lines: "<kernel>: <line>") in which a bf16
+    K1 or K6 instantiation (fa_fwd<D, ...>, fa_nosoftmax<D, ...>; not
+    fa_fwd_f32) reports a spill."""
+    return [ln for ln in ptxas if re.match(r"fa_(?:fwd|nosoftmax)ILi", ln)
+            and re.search(r"[1-9]\d* bytes spill", ln)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1074,12 +1113,15 @@ def main() -> int:
     device = resolve_device("cuda")
     t0 = time.perf_counter()
     built = _build.build()
-    ptxas = [ln.strip() for name in _build.SIGNATURES
-             for ln in _build.library_path(name).with_name(
-                 _build.library_path(name).name + ".log").read_text()
-             .splitlines() if "Used" in ln or "spill" in ln]
+    ptxas = [ln for name in _build.SIGNATURES
+             for ln in FV.ptxas_lines(_build.library_path(name).with_name(
+                 _build.library_path(name).name + ".log").read_text(),
+                 r"(?:fa|paged_attention)_\w+")]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built, "ptxas": ptxas})
+    spills = fwd_spills(ptxas)
+    if spills:
+        raise RuntimeError(f"a bf16 K1 or K6 spills: {spills}")
     smi = BG.device_name(device)
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)

@@ -43,7 +43,7 @@ from ..utils.device import resolve_device
 from .gpt import device_name
 from .timing import Timer
 
-TILE = 64                     # K6's CUDA tile: 64 query rows by 64 keys
+TILE = 64                     # K6's CUDA blocks: 64 query rows by 64 keys
 
 # K6 launches since the last reset (the wrapper adds one per launch)
 launches = {"nosoftmax": 0}
@@ -233,6 +233,8 @@ def main(argv=None) -> int:
         rows += [bench_kernel_ceiling(timer, 4, 2048, 12, 64, reps=8),
                  bench_kernel_ceiling(timer, 4, 2048, 8, 128, reps=8),
                  bench_kernel_ceiling(timer, 4, 2048, 12, 64, reps=8,
+                                      causal=True),
+                 bench_kernel_ceiling(timer, 4, 2048, 8, 128, reps=8,
                                       causal=True),
                  bench_library_flash(timer, 4, 2048, 12, 64, reps=8),
                  bench_library_flash(timer, 4, 2048, 8, 128, reps=8),

@@ -15,8 +15,8 @@
 //   * the causal mask is qpos >= kpos, both counted from 0 (also when
 //     Tq != Tk); masked scores are -1e30, not -inf;
 //   * products take the input dtype and accumulate in f32 (bf16 on the
-//     tensor cores, through mma.sync m16n8k16 or, in K3 and K4, wgmma
-//     m64nNk16; f32 with scalar f32 FMAs, so there is no TF32 anywhere);
+//     tensor cores through wgmma m64nNk16; f32 with scalar f32 FMAs, so
+//     there is no TF32 anywhere);
 //   * p is rounded to the input dtype before P.V and before dv += P^T dO;
 //     ds is rounded before dq += ds K and dk += ds^T q;
 //   * each output is written once, in the input dtype; lse is emitted in
@@ -24,9 +24,12 @@
 //   * GQA: query head h reads KV head h / (H / KVH); K4 sums the g query
 //     heads of a KV head in f32 and writes compact dk/dv once (what
 //     _compact_kv_grad computes after the TPU kernel), with no atomics.
+// The bf16 kernels take exp2 from ex2.approx.ftz (a p below 2^-126 is 0
+// where exp2f gives a denormal).
 //
 // Tiles: 64 query rows by 64 keys, 4 warps of 16 rows each (the bf16 K4
-// takes its queries QN at a time, BwdCfg below).  Rows past T
+// takes its queries QN at a time, BwdCfg below; the bf16 K1 and K6 take
+// 64 rows per warpgroup and FwdCfg's warpgroups per block).  Rows past T
 // are zero-filled on the way into shared memory and masked, so any T
 // works (the TPU's fit_block multiple-of-8 rule does not apply).  The
 // causal classifier causal_tile_class (the TPU's _causal_tile_classes)
@@ -37,29 +40,38 @@
 // D=64, causal, bf16): K1, K3 and K4 are bound by tensor-core operations
 // (17-34 GFLOP against tens of MB), K2 by bytes (it reads O and dO once).
 // K6 at the roofline's shapes (B=4, T=2048, 12 heads of 64 or 8 of 128,
-// bf16) is bound by operations too (27-69 GFLOP against 50 MB).
+// bf16) is bound by operations too (27-69 GFLOP against 50 MB).  At D=64
+// K1 also meets the special-function unit: one exp2 per score against 256
+// tensor-core flops per score, the two rates' ratio on this card.
 //
-// K1, K2, K6 and the f32 K3/K4 (the first version): the products run on
-// the tensor cores through mma.sync (bf16) from synchronously staged
-// shared-memory tiles read with 32-bit loads; the online-softmax state
-// and the accumulators stay in registers, and nothing of size [T, T] ever
-// reaches device memory.
+// K2 and the f32 K1/K3/K4 (the first version): the f32 products are
+// scalar FMAs from synchronously staged shared-memory tiles; the
+// online-softmax state and the accumulators stay in registers, and nothing
+// of size [T, T] ever reaches device memory.
 //
-// The bf16 K3 and K4, redesigned for Hopper: one warpgroup per block
-// issues every product as wgmma (s and dp with both operands in shared
-// memory; dq, dk, dv with p / ds as the A operand straight from the
+// The bf16 K1, K3, K4 and K6, redesigned for Hopper: each warpgroup
+// issues its products as wgmma (s and dp with both operands in shared
+// memory; P.V, dq, dk, dv with p / ds as the A operand straight from the
 // accumulator registers); tiles arrive through cp.async rings, in the
 // 128-byte-swizzled layout that wgmma reads, while earlier tiles are
-// computed.  K4 runs one block per (k-tile, query head), k-tile 0 first,
-// and sums a KV head's query heads in a thread-block cluster through
-// distributed shared memory, in a fixed order and without atomics.
-// What still bounds them: inside a block the chain s -> p -> ds ->
-// products is serial (only p overlaps dp), so the tensor cores wait on
-// exp2 and the element-wise work, which only the other blocks on the SM
-// hide; K3 and K4 both recompute s and dp (7 products where one fused
-// kernel would do 5).  Left for later: TMA loads and warp specialisation
-// (a producer warp, consumer warpgroups taking turns), and the same
-// redesign for K1 and K6.
+// computed.  K1 and K6 share one tile loop (fwd_tile_loop): a block's
+// warpgroups share its K/V ring, s = q K^T for the next k-tile and P.V for
+// the last one go out as two wgmma groups together, and K1 folds the
+// score scale into the exp2 argument's FMA.  K4 runs one block per
+// (k-tile, query head), k-tile 0 first, and sums a KV head's query heads
+// in a thread-block cluster through distributed shared memory, in a fixed
+// order and without atomics.  What still bounds them: inside a warpgroup
+// the chain s -> p -> products is serial (K1 overlaps its softmax with
+// the in-flight P.V only at D=128, where registers allow; K3 only p with
+// dp), so the tensor cores wait on exp2 and the element-wise work, which
+// only the other warpgroups on the SM hide; the products with both
+// operands in shared memory at N=64 read as many shared-memory bytes as
+// the tensor cores can take; K3 and K4 both recompute s and dp (7
+// products where one fused kernel would do 5).  Left for later: TMA loads
+// and warp specialisation (a producer warp, consumer warpgroups taking
+// turns through named barriers), and a persistent grid that walks the
+// (q-tile, head) items longest first, so one item's epilogue overlaps the
+// next one's loads.
 //
 // Built by kungfu_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -95,10 +107,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Row padding of a shared tile, in elements: 16 bytes keeps every row
 // 16-byte aligned and shifts consecutive rows by four banks.
@@ -172,60 +180,30 @@ struct Mat {
   __device__ __forceinline__ float at(int m, int k) const {
     return to_f(p[m * SM + k * SK]);
   }
-  // bf16 pair (X(m, k), X(m, k + 1)) packed low-to-high for mma.sync
-  __device__ __forceinline__ uint32_t pair(int m, int k) const {
-    if constexpr (SK == 1) {
-      return *reinterpret_cast<const uint32_t*>(p + m * SM + k);
-    } else {
-      const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
-      return static_cast<uint32_t>(u[m * SM + k * SK]) |
-             (static_cast<uint32_t>(u[m * SM + (k + 1) * SK]) << 16);
-    }
-  }
 };
 
-// One warp: C[16, 8 * NT] += A[16, K] . B[K, 8 * NT], with A given as
-// A(m, k) and B as B(n, k).  C lives in registers in the mma.sync m16n8
-// accumulator layout: lane (g = lane / 4, t = lane % 4) holds, for n-tile
-// j, rows g and g + 8 at columns 8j + 2t and 8j + 2t + 1 as
-// c[j] = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.  bf16 runs on the
-// tensor cores; f32 keeps the same ownership with scalar FMAs.
+// One warp: C[16, 8 * NT] += A[16, K] . B[K, 8 * NT] in f32, with A
+// given as A(m, k) and B as B(n, k), by scalar FMAs (the f32 kernels; every
+// bf16 product is a wgmma).  C lives in registers in the mma.sync m16n8
+// accumulator layout, which is also wgmma's: lane (g = lane / 4, t = lane
+// % 4) holds, for n-tile j, rows g and g + 8 at columns 8j + 2t and
+// 8j + 2t + 1 as c[j] = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
 template <typename T, int NT, int K, class MA, class MB>
 __device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const MA& a,
                                           const MB& b) {
+  static_assert(std::is_same<T, float>::value, "f32 only");
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const uint32_t a0 = a.pair(g, k0 + 2 * t);
-      const uint32_t a1 = a.pair(g + 8, k0 + 2 * t);
-      const uint32_t a2 = a.pair(g, k0 + 2 * t + 8);
-      const uint32_t a3 = a.pair(g + 8, k0 + 2 * t + 8);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const uint32_t b0 = b.pair(8 * j + g, k0 + 2 * t);
-        const uint32_t b1 = b.pair(8 * j + g, k0 + 2 * t + 8);
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};\n"
-            : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
-            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-      }
-    }
-  } else {
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float x0 = a.at(g, k), x1 = a.at(g + 8, k);
+  for (int k = 0; k < K; ++k) {
+    const float x0 = a.at(g, k), x1 = a.at(g + 8, k);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float y0 = b.at(8 * j + 2 * t, k);
-        const float y1 = b.at(8 * j + 2 * t + 1, k);
-        c[j][0] = fmaf(x0, y0, c[j][0]);
-        c[j][1] = fmaf(x0, y1, c[j][1]);
-        c[j][2] = fmaf(x1, y0, c[j][2]);
-        c[j][3] = fmaf(x1, y1, c[j][3]);
-      }
+    for (int j = 0; j < NT; ++j) {
+      const float y0 = b.at(8 * j + 2 * t, k);
+      const float y1 = b.at(8 * j + 2 * t + 1, k);
+      c[j][0] = fmaf(x0, y0, c[j][0]);
+      c[j][1] = fmaf(x0, y1, c[j][1]);
+      c[j][2] = fmaf(x1, y0, c[j][2]);
+      c[j][3] = fmaf(x1, y1, c[j][3]);
     }
   }
 }
@@ -276,8 +254,14 @@ __device__ __forceinline__ void write_rows(T* out, long long st, int row0,
     T* dst = out + row * st;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      dst[8 * j + 2 * t] = from_f<T>(c[j][2 * half] * mul);
-      dst[8 * j + 2 * t + 1] = from_f<T>(c[j][2 * half + 1] * mul);
+      const float lo = c[j][2 * half] * mul, hi = c[j][2 * half + 1] * mul;
+      if constexpr (std::is_same<T, bf16>::value) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t) = v;
+      } else {
+        dst[8 * j + 2 * t] = lo;
+        dst[8 * j + 2 * t + 1] = hi;
+      }
     }
   }
 }
@@ -337,7 +321,7 @@ __device__ __forceinline__ bool span_masked(const Params& p, int q_lo, int nq,
          k_lo + nk > p.Tk;
 }
 
-// ------------------------------------------------ wgmma (bf16 K3 and K4)
+// ------------------------------------- wgmma (bf16 K1, K3, K4 and K6)
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -368,7 +352,8 @@ __device__ __forceinline__ void reg_fence(float (&d)[NT][4]) {
 // 16w to 16w + 15).  ss: A and B from shared memory by descriptor, both
 // K-major (s and dp: N = 64 or K4's q-tile width 32); rs: A from
 // registers (each warp's m16n8k16 A fragment) and B from shared memory,
-// MN-major, imm-trans-b = 1 (dq, dk, dv: N = D).  acc = 0 overwrites d.
+// MN-major, imm-trans-b = 1 (P.V, dq, dk, dv: N = D).  acc = 0 overwrites
+// d.
 template <int N>
 struct Wgmma;
 template <>
@@ -472,15 +457,15 @@ struct Wgmma<128> {
 // A wgmma tile of ROWS rows by D bf16 columns: D / 64 blocks of ROWS rows
 // of 128 bytes; 16-byte chunk c of a row (c < 8 within its block) is
 // stored at chunk c ^ (row % 8): the 128-byte swizzle, each block 1024-byte
-// aligned.  The same
-// tile is a K-major operand (rows = M or N, columns = k) and an MN-major
-// one (rows = k, columns = N).
-template <int D, int ROWS>
+// aligned.  The same tile is a K-major operand (rows = M or N, columns =
+// k) and an MN-major one (rows = k, columns = N).  The block's NT threads
+// share the copies.
+template <int D, int ROWS, int NT = kThreads>
 __device__ __forceinline__ void load_tile_sw128(bf16* s, const bf16* g,
                                                 long long st, int t0,
                                                 int T_len) {
   constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += NT) {
     const int r = i / kChunks, c = i % kChunks;
     const bool in = t0 + r < T_len;
     cp_async16(s + (c >> 3) * ROWS * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3),
@@ -510,6 +495,20 @@ __device__ __forceinline__ uint64_t desc_mn(const bf16* s, int r0) {
   return sw128_desc(s + r0 * 64, ROWS * 128, 1024);
 }
 
+// desc_k<ROWS>(s, k0) - desc_k<ROWS>(s, 0) and desc_mn<ROWS>(s, r0) -
+// desc_mn<ROWS>(s, 0): the start address moves in 16-byte units
+template <int ROWS>
+__host__ __device__ constexpr uint32_t desc_k_off(int k0) {
+  return (k0 >> 6) * ROWS * 8 + ((k0 & 63) >> 3);
+}
+__host__ __device__ constexpr uint32_t desc_mn_off(int r0) { return r0 * 8; }
+// base + off, with base opaque to the compiler at this point: a loop then
+// keeps one descriptor live, not one per k-step and ring slot
+__device__ __forceinline__ uint64_t desc_at(uint64_t base, uint32_t off) {
+  asm volatile("" : "+l"(base));
+  return base + off;
+}
+
 // 2^x by the special-function unit (ex2.approx.ftz: results below 2^-126
 // flush to 0, where exp2f returns a denormal)
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -522,14 +521,16 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* ptr) {
   return ptr + ((1024 - (smem_addr(ptr) & 1023)) & 1023);
 }
 
-// ------------------------------------------------------------------ K1
-// One thread block per (q-tile, b * H + h); loops over the visible k-tiles
+// ------------------------------------------------------------ K1 (f32)
+// The first version's K1, kept for f32 (the correctness cases): one
+// thread block per (q-tile, b * H + h); loops over the visible k-tiles
 // with the online-softmax state (m, l) and the output accumulator in
 // registers.  Tiles are visited from k = 0 up, so a row's running max is
 // finite after the first tile (key 0 is visible to every query).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    fa_fwd(const Params p, float scale_log2) {
+    fa_fwd_f32(const Params p, float scale_log2) {
+  using T = float;
   constexpr int LD = D + pad<T>(), LP = kBK + pad<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -1167,65 +1168,296 @@ __global__ void __launch_bounds__(kThreads, MINB)
   cluster_sum_write<D>(dk, dv, base, p, b, kvh, ik);
 }
 
-// ------------------------------------------------------------------ K6
-// K1's tile loop with the online softmax deleted: per visible (q-tile,
-// k-tile) pair s = q k^T in f32, rounded to bf16 through shared memory
-// where K1 sends p, then acc += s v in f32; out is acc rounded to bf16.
-// There is no score scale and no mask inside a tile: causal keeps only the
-// block skip ik * 64 <= iq * 64 + 63, so a tile that straddles the
-// diagonal is computed whole, and the result is the JAX kernel's at
-// bq = bk = 64.  K1 and K6 differ only by the softmax, so their times'
-// ratio is the softmax's cost in this kernel structure.  bf16 only; q, k,
-// v and out are [B, T, H, D] by strides (the roofline passes [B, H, T, D]
-// tensors with their time and head strides swapped).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    fa_nosoftmax(const Params p) {
-  using T = bf16;
-  constexpr int LD = D + pad<T>(), LP = kBK + pad<T>();
+// --------------------------------------------- K1 and K6 (bf16, wgmma)
+// The online softmax of one k-tile for this thread's two query rows (g and
+// g + 8 of its warp's 16, row_base + 8 r), in base 2: x = s * scale *
+// log2(e), -1e30 where `masked` and the pair is not visible; m_new = max(m,
+// max x); s becomes p = exp2(x - m_new) in place; m and l move on, and
+// corr[r] = exp2(m - m_new) is the factor the row's output accumulator
+// must take.  Unmasked tiles fold the scale into one FMA per score (the
+// row max of s * c is c times the row max of s, c > 0).
+__device__ __forceinline__ void online_softmax(const Params& p,
+                                               float (&s)[kBK / 8][4],
+                                               int row_base, int k0,
+                                               bool masked, float scale_log2,
+                                               float (&m)[2], float (&l)[2],
+                                               float (&corr)[2]) {
+  const int t = threadIdx.x & 3;
+  float c = scale_log2;
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = pair_visible(p, row_base + 8 * (e >> 1),
+                               k0 + 8 * j + 2 * t + (e & 1))
+                      ? s[j][e] * scale_log2
+                      : kNegInf;
+    c = 1.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+    const float m_new = fmaxf(m[r], quad_max(mx) * c);
+    corr[r] = fast_exp2(m[r] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      s[j][2 * r] = fast_exp2(fmaf(s[j][2 * r], c, -m_new));
+      s[j][2 * r + 1] = fast_exp2(fmaf(s[j][2 * r + 1], c, -m_new));
+      sum += s[j][2 * r] + s[j][2 * r + 1];
+    }
+    l[r] = corr[r] * l[r] + quad_sum(sum);
+    m[r] = m_new;
+  }
+}
+
+// keep the compiler from reusing A-fragment registers that an issued
+// wgmma may still be reading
+template <int N>
+__device__ __forceinline__ void reg_fence_a(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// The forward's tile loop for bf16, K1 (SOFTMAX) and K6 (without).  One
+// block per (q-tile of 64 WG rows, b * H + h) holds WG warpgroups;
+// warpgroup w owns the tile's rows 64w to 64w + 63 (its warp v rows 16v
+// to 16v + 15).  Grid x = b * H + h, y = q-tiles from the last (the
+// longest under the causal mask) down.  q is staged once; K and V stream
+// through rings of two slots each, in the 128-byte-swizzled layout wgmma
+// reads, shared by the warpgroups: at the top of k-tile ik the copies of
+// K[ik + 1] and V[ik] start, and they have the whole of k-tile ik's work
+// to land.  Per k-tile each warpgroup issues two wgmma groups together:
+// s = q K[ik]^T (q and K K-major from shared memory) and acc += p[ik - 1]
+// V[ik - 1] (p, rounded to bf16, as the register A operand straight from
+// the accumulator layout; V MN-major).  With OVERLAP the softmax of s runs
+// while the PV product is in flight (without, after it); then acc takes
+// its rows' correction factors (only rows whose max rose) and p[ik] is
+// packed for the next k-tile.  K6 packs
+// s itself: no scale, no mask, no softmax.  Under causal each warpgroup
+// stops after its own last visible 64-key block (my_end), so K6 skips
+// whole 64 x 64 blocks and computes the diagonal ones whole (the JAX
+// kernel's result at 64 x 64 blocks), whatever WG is; K1 computes a
+// warpgroup's block past its last one, all masked, as p = 0.  Only tiles
+// that straddle the diagonal or the ragged edge are masked (span_masked);
+// rows past T are zero-filled on the way in.
+template <int D, bool SOFTMAX, int WG, bool OVERLAP>
+__device__ __forceinline__ void fwd_tile_loop(const Params& p,
+                                              float scale_log2) {
+  constexpr int KS = D / 16, NK = kBK / 8, KP = kBK / 16;
+  constexpr int NT = WG * kThreads, ROWS = WG * kBQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQ + kBQ * LD;
-  T* sV = sK + kBK * LD;
-  T* sS = sV + kBK * LD;
+  bf16* sQ = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* sK = sQ + ROWS * D;           // two slots of kBK x D
+  bf16* sV = sK + 2 * kBK * D;        // two slots of kBK x D
 
-  const int n_q = (p.Tq + kBQ - 1) / kBQ;
-  const int iq = n_q - 1 - blockIdx.x;       // longest causal rows first
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int warp = threadIdx.x >> 5;
-  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[2];
-  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + h * p.ks[2];
-  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + h * p.vs[2];
-
-  load_tile<T, D>(sQ, qg, p.qs[1], iq * kBQ, p.Tq);
-
-  float acc[D / 8][4];
-  zero(acc);
+  const int n_q = (p.Tq + ROWS - 1) / ROWS;
+  const int iq = n_q - 1 - blockIdx.y;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ks[0] +
+                   kvh * p.ks[2];
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vs[0] +
+                   kvh * p.vs[2];
+  const bf16* sQw = sQ + wg * kBQ * D;   // this warpgroup's 64 rows
+  const int q_lo = iq * ROWS + wg * kBQ;
+  // the k-tiles of the block, and of this warpgroup's rows
   const int n_k = (p.Tk + kBK - 1) / kBK;
-  int k_end = n_k;
+  int k_end = n_k, my_end = n_k;
+  // K1 needs no skip (its mask zeroes p past a warpgroup's last block),
+  // and one warpgroup's last block is the block's
+  constexpr bool all_on = SOFTMAX || WG == 1;
   if (p.causal) {
-    const int last = (iq * kBQ + kBQ - 1) / kBK;   // last visible tile
+    const int last = (iq * ROWS + ROWS - 1) / kBK;
+    const int my_last = (q_lo + kBQ - 1) / kBK;
     k_end = last + 1 < n_k ? last + 1 : n_k;
+    my_end = my_last + 1 < n_k ? my_last + 1 : n_k;
   }
-  for (int ik = 0; ik < k_end; ++ik) {
-    __syncthreads();                 // the previous tile is consumed
-    load_tile<T, D>(sK, kg, p.ks[1], ik * kBK, p.Tk);
-    load_tile<T, D>(sV, vg, p.vs[1], ik * kBK, p.Tk);
+  auto slot = [](bf16* ring, int ik) { return ring + (ik & 1) * kBK * D; };
+  // wgmma descriptors of q, and of the first K and V slots; a slot is
+  // kBK * D * 2 bytes on
+  const uint64_t q_desc = desc_k<kBQ>(sQw, 0), k_desc = desc_k<kBK>(sK, 0),
+                 v_desc = desc_mn<kBK>(sV, 0);
+  constexpr uint32_t kSlotDesc = kBK * D * 2 / 16;
+  auto load_k = [&](int ik) {
+    load_tile_sw128<D, kBK, NT>(slot(sK, ik), kg, p.ks[1], ik * kBK, p.Tk);
+  };
+  auto load_v = [&](int ik) {
+    load_tile_sw128<D, kBK, NT>(slot(sV, ik), vg, p.vs[1], ik * kBK, p.Tk);
+  };
+  const int row_base = q_lo + warp * 16 + g;
+  float acc[D / 8][4], s[NK][4], m[2] = {kNegInf, kNegInf},
+                                 l[2] = {0.f, 0.f}, corr[2];
+  uint32_t a[KP][4];
+  zero(acc);
+  // s = q K[ik]^T, issued as one wgmma group
+  auto issue_s = [&](int ik) {
+    const uint32_t slot_off = (ik & 1) * kSlotDesc;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<kBK>::ss(s, desc_at(q_desc, desc_k_off<kBQ>(16 * kk)),
+                     desc_at(k_desc, slot_off + desc_k_off<kBK>(16 * kk)),
+                     kk);
+    wgmma_commit();
+  };
+  // acc += a V[ik], issued as one wgmma group
+  auto issue_pv = [&](int ik) {
+    const uint32_t slot_off = (ik & 1) * kSlotDesc;
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk)
+      Wgmma<D>::rs(acc, a[kk],
+                   desc_at(v_desc, slot_off + desc_mn_off(16 * kk)));
+    wgmma_commit();
+  };
+  auto softmax = [&](int ik) {
+    if constexpr (SOFTMAX)
+      online_softmax(p, s, row_base, ik * kBK,
+                     span_masked(p, q_lo, kBQ, ik * kBK, kBK), scale_log2, m,
+                     l, corr);
+  };
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk) acc_to_a<NK>(a[kk], s, kk);
+  };
+
+  if (k_end > 0) {
+    for (int w = 0; w < WG; ++w)
+      load_tile_sw128<D, kBQ, NT>(
+          sQ + w * kBQ * D,
+          static_cast<const bf16*>(p.q) + b * p.qs[0] + h * p.qs[2], p.qs[1],
+          iq * ROWS + w * kBQ, p.Tq);
+    load_k(0);
+    cp_async_commit();
+    if (k_end > 1) load_k(1);
+    load_v(0);
+    cp_async_commit();
+    cp_async_wait<1>();               // q and K[0] have landed
+    fence_async_smem();
     __syncthreads();
-    float s[kBK / 8][4];
-    zero(s);
-    warp_gemm<T, kBK / 8, D>(s, Mat<T, LD, 1>{sQ + warp * 16 * LD},
-                             Mat<T, LD, 1>{sK});
-    // s, rounded to bf16, through this warp's rows of sS into the SV product
-    store_frag<T, kBK / 8, LP>(sS + warp * 16 * LP, s);
-    __syncwarp();
-    warp_gemm<T, D / 8, kBK>(acc, Mat<T, LP, 1>{sS + warp * 16 * LP},
-                             Mat<T, 1, LD>{sV});
-    __syncwarp();
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait<0>();
+    reg_fence(s);
+    softmax(0);                       // acc is 0: nothing to rescale
+    pack();
+    for (int ik = 1; ik < k_end; ++ik) {
+      // K[ik] and V[ik - 1] have landed, and every warp is done with
+      // K[ik - 1] and V[ik - 2], whose slots take K[ik + 1] and V[ik]
+      cp_async_wait<0>();
+      fence_async_smem();
+      __syncthreads();
+      if (ik + 1 < k_end) load_k(ik + 1);
+      load_v(ik);
+      cp_async_commit();
+      const bool on = all_on || ik < my_end;
+      reg_fence(acc);
+      wgmma_fence();
+      if (on) issue_s(ik);
+      issue_pv(ik - 1);
+      if (on) {
+        // s is ready; with OVERLAP p[ik - 1] V is still in flight
+        wgmma_wait<OVERLAP ? 1 : 0>();
+        reg_fence(s);
+        softmax(ik);
+      }
+      wgmma_wait<0>();
+      reg_fence(acc);
+      reg_fence_a(a);
+      if (on) {
+        if constexpr (SOFTMAX) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (corr[r] != 1.f) {     // the row max rose
+#pragma unroll
+              for (int j = 0; j < D / 8; ++j) {
+                acc[j][2 * r] *= corr[r];
+                acc[j][2 * r + 1] *= corr[r];
+              }
+            }
+          }
+        }
+        pack();
+      }
+    }
+    cp_async_wait<0>();               // V[k_end - 1] has landed
+    fence_async_smem();
+    __syncthreads();
+    if (all_on || k_end <= my_end) {
+      reg_fence(acc);
+      wgmma_fence();
+      issue_pv(k_end - 1);
+      wgmma_wait<0>();
+      reg_fence(acc);
+    }
   }
-  T* og = static_cast<T*>(p.out) + b * p.os[0] + h * p.os[2];
-  write_rows<T, D / 8>(og, p.os[1], iq * kBQ + warp * 16, p.Tq, acc, 1.f,
-                       1.f);
+
+  bf16* og = static_cast<bf16*>(p.out) + b * p.os[0] + h * p.os[2];
+  if constexpr (SOFTMAX) {
+    const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
+    write_rows<bf16, D / 8>(og, p.os[1], q_lo + warp * 16, p.Tq, acc,
+                            1.f / l0, 1.f / l1);
+    if (p.lse != nullptr && t == 0) {
+      float* lse = p.lse + (static_cast<long long>(b) * p.H + h) * p.Tq;
+      if (row_base < p.Tq) lse[row_base] = m[0] * kInvLog2e + logf(l0);
+      if (row_base + 8 < p.Tq)
+        lse[row_base + 8] = m[1] * kInvLog2e + logf(l1);
+    }
+  } else {
+    write_rows<bf16, D / 8>(og, p.os[1], q_lo + warp * 16, p.Tq, acc, 1.f,
+                            1.f);
+  }
+}
+
+// The bf16 K1 and K6 choices per head_dim: warpgroups per block (each
+// owns 64 query rows and shares the block's K/V ring), the blocks per SM
+// that __launch_bounds__ holds registers to, and whether K1's softmax
+// overlaps the in-flight PV product (which keeps p[ik - 1] live beside s).
+// At D = 64 two warpgroups a block halve the K/V staging per query row and
+// fit 2 blocks per SM in 128 registers only without the overlap (with it
+// ptxas spills 28 bytes; it bought 1% there, since 4 warpgroups per SM
+// already overlap each other).  At D = 128 shared memory (81 KB a block)
+// allows 2 one-warpgroup blocks, registers allow the overlap, and a
+// second warpgroup did not pay.
+template <int D>
+struct FwdCfg;
+template <>
+struct FwdCfg<64> {
+  static constexpr int kWG = 2, kMinB = 2;
+  static constexpr bool kOverlap = false;
+};
+template <>
+struct FwdCfg<128> {
+  static constexpr int kWG = 1, kMinB = 2;
+  static constexpr bool kOverlap = true;
+};
+
+// ------------------------------------------------------- K1 (bf16, wgmma)
+template <int D, int WG, int MINB>
+__global__ void __launch_bounds__(WG * kThreads, MINB)
+    fa_fwd(const Params p, float scale_log2) {
+  fwd_tile_loop<D, true, WG, FwdCfg<D>::kOverlap>(p, scale_log2);
+}
+
+// ------------------------------------------------------------------ K6
+// K1's tile loop with the online softmax deleted (fwd_tile_loop): per
+// visible 64 x 64 block pair s = q k^T in f32, rounded to bf16 as the A
+// operand, then acc += s v in f32; out is acc rounded to bf16.  K1 and K6
+// differ only by the softmax, so their times' ratio is the softmax's cost
+// in this kernel structure.  q, k, v and out are [B, T, H, D] by strides
+// (the roofline passes [B, H, T, D] tensors with their time and head
+// strides swapped).
+template <int D, int WG, int MINB>
+__global__ void __launch_bounds__(WG * kThreads, MINB)
+    fa_nosoftmax(const Params p) {
+  fwd_tile_loop<D, false, WG, false>(p, 0.f);
 }
 
 // ------------------------------------------------------------- launches
@@ -1236,16 +1468,36 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D>
-cudaError_t launch_fwd(const Params& p, cudaStream_t st) {
-  constexpr size_t LD = D + pad<T>(), LP = kBK + pad<T>();
-  const size_t smem = sizeof(T) * ((kBQ + 2 * kBK) * LD + kBQ * LP);
-  auto kern = fa_fwd<T, D>;
+template <int D>
+cudaError_t launch_fwd_f32(const Params& p, cudaStream_t st) {
+  constexpr size_t LD = D + pad<float>(), LP = kBK + pad<float>();
+  const size_t smem = sizeof(float) * ((kBQ + 2 * kBK) * LD + kBQ * LP);
+  auto kern = fa_fwd_f32<D>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Tq + kBQ - 1) / kBQ, p.B * p.H);
   kern<<<grid, kThreads, smem, st>>>(p, p.scale * kLog2e);
   return cudaGetLastError();
+}
+
+// The bf16 K1 and K6 launch: q (64 rows a warpgroup), then the two K and
+// the two V slots in shared memory (+ 1024: the alignment).
+template <int D, class K, class... A>
+cudaError_t launch_fwd_loop(K kern, const Params& p, cudaStream_t st,
+                            A... args) {
+  constexpr int WG = FwdCfg<D>::kWG;
+  const size_t smem = sizeof(bf16) * (WG * kBQ + 4 * kBK) * D + 1024;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.B * p.H, (p.Tq + WG * kBQ - 1) / (WG * kBQ));
+  kern<<<grid, WG * kThreads, smem, st>>>(p, args...);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd_bf16(const Params& p, cudaStream_t st) {
+  return launch_fwd_loop<D>(
+      fa_fwd<D, FwdCfg<D>::kWG, FwdCfg<D>::kMinB>, p, st, p.scale * kLog2e);
 }
 
 // The bf16 K4's choices per head_dim: the q-tile width and the blocks per
@@ -1349,32 +1601,13 @@ cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t st) {
 
 template <int D>
 cudaError_t launch_nosoftmax(const Params& p, cudaStream_t st) {
-  constexpr size_t LD = D + pad<bf16>(), LP = kBK + pad<bf16>();
-  const size_t smem = sizeof(bf16) * ((kBQ + 2 * kBK) * LD + kBQ * LP);
-  auto kern = fa_nosoftmax<D>;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.Tq + kBQ - 1) / kBQ, p.B * p.H);
-  kern<<<grid, kThreads, smem, st>>>(p);
-  return cudaGetLastError();
+  return launch_fwd_loop<D>(
+      fa_nosoftmax<D, FwdCfg<D>::kWG, FwdCfg<D>::kMinB>, p, st);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128.
+// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128.  f32 keeps the first
+// version's kernels (the correctness cases), bf16 runs the Hopper ones.
 #define KFT_DISPATCH(fn)                                                 \
-  cudaError_t fn##_any(const Params& p, int D, int dtype,                  \
-                       cudaStream_t st) {                                  \
-    if (dtype == 0 && D == 64) return fn<float, 64>(p, st);                \
-    if (dtype == 0 && D == 128) return fn<float, 128>(p, st);              \
-    if (dtype == 1 && D == 64) return fn<bf16, 64>(p, st);                 \
-    if (dtype == 1 && D == 128) return fn<bf16, 128>(p, st);               \
-    return cudaErrorInvalidValue;                                          \
-  }
-KFT_DISPATCH(launch_fwd)
-#undef KFT_DISPATCH
-
-// K3 and K4: f32 keeps the first version's kernels, bf16 runs the
-// Hopper ones.
-#define KFT_DISPATCH_BWD(fn)                                             \
   cudaError_t fn##_any(const Params& p, int D, int dtype,                  \
                        cudaStream_t st) {                                  \
     if (dtype == 0 && D == 64) return fn##_f32<64>(p, st);                 \
@@ -1383,9 +1616,10 @@ KFT_DISPATCH(launch_fwd)
     if (dtype == 1 && D == 128) return fn##_bf16<128>(p, st);              \
     return cudaErrorInvalidValue;                                          \
   }
-KFT_DISPATCH_BWD(launch_dq)
-KFT_DISPATCH_BWD(launch_dkv)
-#undef KFT_DISPATCH_BWD
+KFT_DISPATCH(launch_fwd)
+KFT_DISPATCH(launch_dq)
+KFT_DISPATCH(launch_dkv)
+#undef KFT_DISPATCH
 
 Params make_params(int B, int H, int KVH, int Tq, int Tk, int causal,
                    float scale) {

@@ -25,7 +25,7 @@ causal mask is ``qpos >= kpos`` counted from 0, also when Tq != Tk.
 The kernels take head_dim 64 or 128 and any T (the ragged edge is
 masked, so the TPU's multiple-of-8 block rule does not apply).  The
 block-size arguments of the JAX API are accepted and do not change the
-result: the CUDA tile is 64 x 64.
+result: the CUDA tiles are fixed (64 keys by 64 query rows a warpgroup).
 """
 from __future__ import annotations
 
