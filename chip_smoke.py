@@ -5,12 +5,16 @@
 
 1. builds every CUDA kernel of the port from this checkout (nvcc, into
    kungfu_tpu_torch/_build/), prints each kernel's registers and spills
-   (failing if a bf16 K1 or K6 spills) and the card's name and power
-   limit;
+   (failing if a bf16 K1, K6, K2 or K5 spills) and the card's name and
+   power limit;
 2. holds the paged-decode kernel (K5) against its plain PyTorch version on
    the card at the 470m serving shapes -- bf16, f32, multi-query, int8
-   pool, poisoned scratch block -- and times it beside its bound, the
-   plain version and one PyTorch attention call;
+   pool, poisoned scratch block -- shows with planted faults in a plain
+   emulation of its split and merge (a dropped newest rank, unweighted
+   partials, a past-reach scratch block) that the limit would catch them,
+   and times it (the serve's ragged slots, every slot at full length, the
+   Q = 4 verify) beside its bound, one launch's floor, the plain version
+   and one PyTorch attention call;
 3. serves the repo's 470m GPT (kungfu_tpu/benchmarks/gpt.py preset,
    seed-initialized, bf16) over HTTP through the port's ServingServer:
    16 concurrent streamed requests, checking that every decode layer-step
@@ -100,11 +104,14 @@ def emit(obj) -> None:
 
 # --------------------------------------------------------- phase 2: K5
 def k5_inputs(device, dtype, Q, quant, rng, S=8, H=16, KVH=4, Dh=64,
-              bs=32, MB=32, N=512):
+              bs=32, MB=32, N=512, full=False):
     """Ragged slots (positions 0 and 1023 included) with distinct blocks,
-    zeros (scratch) beyond each slot's reach -- the engine's invariant."""
+    zeros (scratch) beyond each slot's reach -- the engine's invariant.
+    ``full``: every slot at the last position (max-length requests)."""
     pos = rng.randint(1, MB * bs - 1, S).astype(np.int32)
     pos[0], pos[1] = 0, MB * bs - 1
+    if full:
+        pos[:] = MB * bs - 1
     tables = np.zeros((S, MB), np.int32)
     free = list(range(1, N))
     rng.shuffle(free)
@@ -121,6 +128,34 @@ def k5_inputs(device, dtype, Q, quant, rng, S=8, H=16, KVH=4, Dh=64,
         k, v, ks, vs = kf.to(dtype), vf.to(dtype), None, None
     return dict(q=q, k_pool=k, v_pool=v, tables=t(tables, torch.int32),
                 pos=t(pos, torch.int32), k_scale=ks, v_scale=vs)
+
+
+# K5's checked cases at the serving shapes: name -> (dtype, Q, int8 pool,
+# tolerance).  bf16: p is rounded to bf16 before the PV product in the
+# kernel (as in the TPU kernel), not in the plain version; f32: summation
+# order only.
+K5_CASES = {"a_bf16_q1": (torch.bfloat16, 1, False, 2e-2),
+            "b_f32_q1": (torch.float32, 1, False, 1e-5),
+            "c_bf16_q4": (torch.bfloat16, 4, False, 2e-2),
+            "d_int8_q1": (torch.bfloat16, 1, True, 2e-2)}
+K5_TOL = 2e-2                    # bf16
+# K5's timed rows (bf16, seed 1): the serve's ragged slots, every slot at
+# its last position (8.4 MB of K/V), the speculative verify (Q = 4)
+K5_TIME_ROWS = {"a_bf16_q1": dict(Q=1), "f_bf16_q1_full": dict(Q=1,
+                                                               full=True),
+                "c_bf16_q4": dict(Q=4)}
+
+
+def k5_time_inputs(device, name: str) -> dict:
+    return k5_inputs(device, torch.bfloat16, quant=False,
+                     rng=np.random.RandomState(1), **K5_TIME_ROWS[name])
+
+
+def k5_excess(got, want, tol: float) -> float:
+    """The largest |got - want| over tol + tol |want|: above 1 exactly
+    where torch.testing.assert_close(rtol=tol, atol=tol) fails."""
+    return ((got.float() - want.float()).abs()
+            / (tol + tol * want.float().abs())).max().item()
 
 
 def k5_bound(inp) -> dict:
@@ -165,14 +200,72 @@ def sdpa_yardstick(inp):
         attn_mask=mask).transpose(1, 2)
 
 
+def _paged_split_plain(inp, ranks: int, fault=None):
+    """K5 as the kernel splits it, in plain PyTorch: block b of a slot goes
+    to part b % ``ranks``; each part keeps its own softmax state (m, l,
+    acc; p rounded to q's dtype before the PV product) and the parts merge
+    with weights exp(m_r - max m).  A planted ``fault``:
+    "drop_newest_rank", the merge leaves out the part that holds the
+    slot's newest keys; "unweighted", the parts are summed without their
+    weights; "past_reach_scratch", the block after the slot's reach (its
+    table entry: scratch block 0) is read as if every key were visible."""
+    q, kp, vp, tables, pos = (inp["q"], inp["k_pool"], inp["v_pool"],
+                              inp["tables"], inp["pos"])
+    S, Q, H, Dh = q.shape
+    bs, KVH, MB = kp.shape[1], kp.shape[2], tables.shape[1]
+    idx = tables.long()
+    kc, vc = (p[idx].reshape(S, MB * bs, KVH, Dh) for p in (kp, vp))
+    if inp["k_scale"] is not None:
+        kc = (kc.float() * inp["k_scale"][idx].reshape(S, -1, KVH, 1)
+              ).to(q.dtype)
+        vc = (vc.float() * inp["v_scale"][idx].reshape(S, -1, KVH, 1)
+              ).to(q.dtype)
+    kc, vc = (_expand_kv_heads(t, H // KVH).float() for t in (kc, vc))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kc) / math.sqrt(Dh)
+    kpos = torch.arange(MB * bs, device=q.device)
+    reach = pos.long()[:, None] + torch.arange(Q, device=q.device)  # [S, Q]
+    vis = (kpos[None, None, :] <= reach[:, :, None])[:, None]   # [S,1,Q,L]
+    block = kpos // bs
+    nb = torch.clamp((pos.long() + Q - 1) // bs + 1, max=MB)      # [S]
+    if fault == "past_reach_scratch":
+        vis = vis | (block[None, :] == nb[:, None])[:, None, None]
+    part = block % ranks
+    ms, ls, accs = [], [], []
+    for r in range(ranks):
+        keep = vis & (part == r)
+        sr = torch.where(keep, s, PA.NEG_INF)
+        m = sr.amax(dim=-1)
+        p = torch.where(keep, torch.exp(sr - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhqk,bkhd->bhqd",
+                                 p.to(q.dtype).float(), vc))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    w = torch.exp(m - m.amax(dim=0))                     # [ranks, S, H, Q]
+    if fault == "unweighted":
+        w = torch.ones_like(w)
+    elif fault == "drop_newest_rank":
+        newest = (nb - 1) % ranks                                   # [S]
+        w = w * (torch.arange(ranks, device=q.device)[:, None]
+                 != newest[None, :]).float()[:, :, None, None]
+    elif fault not in (None, "past_reach_scratch"):
+        raise ValueError(f"unknown fault {fault!r}")
+    out = (w[..., None] * acc).sum(0) / (w * l).sum(0).clamp(
+        min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)          # [S, Q, H, Dh]
+
+
+K5_FAULTS = ("drop_newest_rank", "unweighted", "past_reach_scratch")
+K5_RANKS = 8                     # the kernel's cluster width at MB = 32
+
+
 def phase_kernel(device) -> dict:
+    """K5 against its plain version: every K5_CASES case, and a poisoned
+    scratch block 0 that the kernel must never read.  Returns case ->
+    max abs error."""
     rng = np.random.RandomState(0)
-    cases = {"a_bf16_q1": (torch.bfloat16, 1, False, 2e-2),
-             "b_f32_q1": (torch.float32, 1, False, 1e-5),
-             "c_bf16_q4": (torch.bfloat16, 4, False, 2e-2),
-             "d_int8_q1": (torch.bfloat16, 1, True, 2e-2)}
     errs = {}
-    for name, (dtype, Q, quant, tol) in cases.items():
+    for name, (dtype, Q, quant, tol) in K5_CASES.items():
         inp = k5_inputs(device, dtype, Q, quant, rng)
         got = PA.paged_attention_queries(**inp)
         want = PA.paged_attention_queries_ref(**inp)
@@ -189,24 +282,60 @@ def phase_kernel(device) -> dict:
     inp["v_pool"][0] = 1e3
     got = PA.paged_attention_queries(**inp)
     err = (got.float() - clean.float()).abs().max().item()
-    torch.testing.assert_close(got.float(), clean.float(), rtol=2e-2,
-                               atol=2e-2)
+    torch.testing.assert_close(got.float(), clean.float(), rtol=K5_TOL,
+                               atol=K5_TOL)
     emit({"phase": "k5_check", "case": "e_poisoned_scratch",
-          "max_abs_err": err, "tol": 2e-2})
-    # (a) timed at the main path's shapes
-    inp = k5_inputs(device, torch.bfloat16, 1, False,
-                    np.random.RandomState(1))
+          "max_abs_err": err, "tol": K5_TOL})
+    return errs
+
+
+def phase_k5_faults(device) -> dict:
+    """How far the K5 check's reading (k5_excess; above 1 fails) moves for
+    a kernel with a planted fault, at the serve shapes: the split-and-merge
+    emulation, sound and with each K5_FAULTS fault, against the plain
+    version on the same inputs.  The sound one must read at most 1 and
+    every fault above 1, or the check of phase_kernel could not see it."""
+    inp = k5_time_inputs(device, "a_bf16_q1")
+    want = PA.paged_attention_queries_ref(**inp)
+    sound = k5_excess(_paged_split_plain(inp, K5_RANKS), want, K5_TOL)
+    readings = {f: k5_excess(_paged_split_plain(inp, K5_RANKS, f), want,
+                             K5_TOL) for f in K5_FAULTS}
+    blind = {f: r for f, r in readings.items() if not r > 1}
+    if blind or not sound <= 1:
+        raise RuntimeError(f"K5 limit {K5_TOL} cannot see the faults {blind}"
+                           f" (the sound split reads {sound})")
+    return {"ranks": K5_RANKS, "tol": K5_TOL, "sound": sound,
+            "readings": readings}
+
+
+def phase_k5_time(device) -> dict:
+    """K5 at each K5_TIME_ROWS row, checked against its plain version and
+    timed beside its bound, the plain version and SDPA after a gather;
+    and ``floor_ms``, one launch of a one-element fill through the same
+    timer: the least time any single launch reads here.  Returns row ->
+    record."""
     timer = Timer(device)
-    rec = {"ms": timer(lambda: PA.paged_attention_queries(**inp)),
-           "plain_ms": timer(lambda: PA.paged_attention_queries_ref(**inp)),
-           "library_ms": timer(lambda: sdpa_yardstick(inp))}
-    lib_err = (sdpa_yardstick(inp).float() - PA.paged_attention_queries_ref(
-        **inp).float()).abs().max().item()
-    rec.update(k5_bound(inp))
-    rec["max_abs_err"] = errs["a_bf16_q1"]
-    emit({"phase": "k5_time", "case": "a_bf16_q1", "library_err": lib_err,
-          **rec, "gb_per_s": rec["bytes"] / rec["ms"] / 1e6})
-    return rec
+    one = torch.zeros(1, device=device)
+    floor_ms = timer(lambda: one.fill_(1.0))
+    recs = {}
+    for name in K5_TIME_ROWS:
+        inp = k5_time_inputs(device, name)
+        got = PA.paged_attention_queries(**inp)
+        want = PA.paged_attention_queries_ref(**inp)
+        torch.testing.assert_close(got.float(), want.float(), rtol=K5_TOL,
+                                   atol=K5_TOL)
+        rec = {"ms": timer(lambda: PA.paged_attention_queries(**inp)),
+               "plain_ms": timer(lambda: PA.paged_attention_queries_ref(
+                   **inp)),
+               "library_ms": timer(lambda: sdpa_yardstick(inp)),
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "library_err": (sdpa_yardstick(inp).float() - want.float()
+                               ).abs().max().item(),
+               "floor_ms": floor_ms, **k5_bound(inp)}
+        emit({"phase": "k5_time", "case": name, **rec,
+              "gb_per_s": rec["bytes"] / rec["ms"] / 1e6})
+        recs[name] = rec
+    return recs
 
 
 # ------------------------------------------------------ phase 3: serve
@@ -299,6 +428,7 @@ def phase_profile(params, cfg, device, chunks=4) -> dict:
     eng.step()                                       # prefill + warm-up
     eng.step()
     torch.cuda.synchronize()
+    calls = PA.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -306,18 +436,27 @@ def phase_profile(params, cfg, device, chunks=4) -> dict:
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    calls = PA.launches - calls
     from torch.autograd import DeviceType
-    kernels = {ev.key: ev.self_device_time_total
-               for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA}     # device rows only
+    device_rows = [ev for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA]
+    kernels = {ev.key: ev.self_device_time_total for ev in device_rows}
     busy_us = sum(kernels.values())
     k5_us = sum(v for k, v in kernels.items() if "paged_attention" in k)
+    k5_kernels = sum(ev.count for ev in device_rows
+                     if "paged_attention" in ev.key)
+    # one K5 kernel per wrapper call (a decode layer-step), no second pass
+    if k5_kernels != calls or calls == 0:
+        raise RuntimeError(f"profile: {k5_kernels} paged_attention kernels "
+                           f"for {calls} wrapper calls")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     return {"chunks": chunks, "chunk_steps": eng.K,
             "wall_ms_per_chunk": wall * 1e3 / chunks,
             "device_busy_ms_per_chunk": busy_us / 1e3 / chunks,
             "device_busy_share": busy_us / 1e6 / wall,
             "k5_ms_per_chunk": k5_us / 1e3 / chunks,
+            "k5_kernels_per_chunk": k5_kernels / chunks,
+            "k5_calls_per_chunk": calls / chunks,
             "launches_per_chunk": sum(ev.count for ev in prof.key_averages()
                                       if ev.device_type == DeviceType.CUDA)
             / chunks,
@@ -1098,11 +1237,20 @@ def phase_roofline(device, smi: str, k6_times: dict) -> dict:
                           "hbm_tb_per_s": HBM_BYTES_PER_S / 1e12}}
 
 
-def fwd_spills(ptxas) -> list:
+# the kernels' entry points in a ptxas report (nvcc names a source's
+# anonymous namespace after the file, "paged_attention_cu_<hash>")
+KERNEL_NAMES = r"(?:fa|paged_attention)_(?!cu_)\w+"
+# the bf16 instantiations of the redesigned kernels, by mangled name: K1
+# and K6 (fa_fwd<D, ...>, fa_nosoftmax<D, ...>; not fa_fwd_f32), K2
+# (fa_delta<bf16, D>) and K5 (paged_attention_cluster<bf16, ...>)
+BF16_KERNELS = (r"fa_(?:fwd|nosoftmax)ILi|fa_deltaI13__nv_bfloat16"
+                r"|paged_attention_\w*I13__nv_bfloat16")
+
+
+def bf16_spills(ptxas) -> list:
     """The ptxas lines (FV.ptxas_lines: "<kernel>: <line>") in which a bf16
-    K1 or K6 instantiation (fa_fwd<D, ...>, fa_nosoftmax<D, ...>; not
-    fa_fwd_f32) reports a spill."""
-    return [ln for ln in ptxas if re.match(r"fa_(?:fwd|nosoftmax)ILi", ln)
+    K1, K6, K2 or K5 instantiation reports a spill."""
+    return [ln for ln in ptxas if re.match(BF16_KERNELS, ln)
             and re.search(r"[1-9]\d* bytes spill", ln)]
 
 
@@ -1116,19 +1264,21 @@ def main() -> int:
     ptxas = [ln for name in _build.SIGNATURES
              for ln in FV.ptxas_lines(_build.library_path(name).with_name(
                  _build.library_path(name).name + ".log").read_text(),
-                 r"(?:fa|paged_attention)_\w+")]
+                 KERNEL_NAMES)]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built, "ptxas": ptxas})
-    spills = fwd_spills(ptxas)
+    spills = bf16_spills(ptxas)
     if spills:
-        raise RuntimeError(f"a bf16 K1 or K6 spills: {spills}")
+        raise RuntimeError(f"a bf16 K1, K6, K2 or K5 spills: {spills}")
     smi = BG.device_name(device)
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    k5 = phase_kernel(device)
+    k5_errs = phase_kernel(device)
+    emit({"phase": "k5_faults", **phase_k5_faults(device)})
+    k5 = phase_k5_time(device)["a_bf16_q1"]
 
     cfg = G.GPTConfig(**MODEL, dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -1176,7 +1326,7 @@ def main() -> int:
         "source": "kungfu_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "kungfu_tpu/ops/paged_attention.py:65",
         "launches": serve["k5_launches"],
-        "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+        "max_abs_err": k5_errs["a_bf16_q1"], "ms": k5["ms"],
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
         "bound_by": k5["bound_by"], "library_ms": k5["library_ms"]}]
     for name, line in FLASH_REPLACES.items():

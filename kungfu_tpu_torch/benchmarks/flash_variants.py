@@ -1,17 +1,22 @@
-"""Build variants of the flash kernels side by side and check and time
-each on the card: the backward (K3 ``fa_bwd_dq``, K4 ``fa_bwd_dkv``), or
-with ``--fwd`` the forward (K1 ``fa_fwd``) and its tile loop without the
-softmax (K6 ``fa_nosoftmax``).
+"""Build variants of a kernel source side by side and check and time
+each on the card: the flash backward (K3 ``fa_bwd_dq``, K4
+``fa_bwd_dkv``); with ``--fwd`` the forward (K1 ``fa_fwd``) and its tile
+loop without the softmax (K6 ``fa_nosoftmax``); with ``--delta`` the
+backward's delta (K2 ``fa_delta``); with ``--paged`` the paged-decode
+kernel (K5, ``paged_attention.cu`` in place of ``flash_attention.cu``).
 
     python -m kungfu_tpu_torch.benchmarks.flash_variants VARIANTS.json \\
-        [--rounds 2] [--cases j_bf16_470m_train] [--sdpa] [--fwd]
+        [--rounds 2] [--cases j_bf16_470m_train] [--sdpa] \\
+        [--fwd | --delta | --paged]
 
 Run it from the root of the repository: it holds the kernels to
 ``chip_smoke.py``'s cases, error measure and limits.  VARIANTS.json maps
 a name to one of
 
 * ``{"file": "path/to/flash_attention.cu"}``: another source with the same
-  C interface (for instance the parent commit's, from ``git show``);
+  C interface (for instance the parent commit's, from ``git show``; with
+  ``--paged``, a ``paged_attention.cu`` whose entry point takes the first
+  K5's f32 workspace is run through that interface);
 * ``{"64": {field: value}, "128": {...}, "sub": [[old, new], ...]}``: this
   checkout's source with fields of ``BwdCfg<64>`` / ``BwdCfg<128>``
   overridden and text substituted.
@@ -26,9 +31,15 @@ named ``chip_smoke.FLASH_CASES`` through K1-K4, then at the 470m and the
 their times (``benchmarks.timing.Timer``; with ``--sdpa`` also SDPA's
 backward).  With ``--fwd``: out and lse of K1 at the same two shapes and
 K6 at the roofline's shapes (``chip_smoke.K6_ROWS``) against their plain
-versions, and their times (with ``--sdpa`` also SDPA's forward).  Rounds
-alternate the order of the variants (a, b, b, a).  One JSON line per
-(variant, shape, round); exits non-zero if any check fails.
+versions, and their times (with ``--sdpa`` also SDPA's forward).  With
+``--delta``: K2 at the two shapes, with and without an lse cotangent,
+against its plain version, a bitwise repeat, and its time beside
+``torch.linalg.vecdot``'s.  With ``--paged``: ``chip_smoke.K5_CASES``
+against the plain version, a bitwise repeat, and K5's time at each
+``chip_smoke.K5_TIME_ROWS`` row (with ``--sdpa`` also SDPA after a
+gather).  K2 and K5, read-bound, are also timed after a flush that leaves
+L2 clean (``Timer``'s ``read_flush``).  Rounds alternate the order of the variants (a, b, b, a).  One
+JSON line per (variant, shape, round); exits non-zero if any check fails.
 """
 from __future__ import annotations
 
@@ -52,6 +63,11 @@ from .timing import Timer
 SHAPES = {"470m": {}, "470m_hd128": dict(H=8, KVH=2, D=128)}
 BWD_KERNELS = r"fa_bwd_d(?:q|kv)\w*"
 FWD_KERNELS = r"fa_(?:fwd|nosoftmax)\w*"
+# mode -> (source in ops/csrc, kernels whose ptxas lines are printed)
+MODES = {"bwd": ("flash_attention", BWD_KERNELS),
+         "fwd": ("flash_attention", FWD_KERNELS),
+         "delta": ("flash_attention", r"fa_delta\w*"),
+         "paged": ("paged_attention", r"paged_attention_(?!cu_)\w+")}
 
 
 def variant_source(src: str, variant: dict) -> str:
@@ -60,6 +76,8 @@ def variant_source(src: str, variant: dict) -> str:
         return Path(variant["file"]).read_text()
     out = src
     for d in ("64", "128"):
+        if d not in variant:
+            continue
         a = out.index(f"struct BwdCfg<{d}> {{")
         b = out.index("};", a)
         block = out[a:b]
@@ -91,13 +109,110 @@ def ptxas_lines(log: str, kernels: str = BWD_KERNELS) -> list:
     return out
 
 
-def bind(path: str) -> ctypes.CDLL:
+class _WorkspaceK5:
+    """The first K5's entry point (a partial and a merge launch over an
+    f32 workspace, which it sizes with ``kft_paged_attention_workspace``)
+    behind the current one, so a parent's source can be timed beside the
+    checkout's."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self.lib = lib
+        lib.kft_paged_attention_workspace.argtypes = [ctypes.c_int] * 6
+        lib.kft_paged_attention_workspace.restype = ctypes.c_longlong
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.kft_paged_attention.argtypes = ([P] * 9 + [I] * 9
+                                            + [ctypes.c_float, P])
+        lib.kft_paged_attention.restype = I
+
+    def kft_paged_attention(self, *args):
+        S, Q, H, KVH, Dh, bs, MB = args[8:15]
+        ws = torch.empty(self.lib.kft_paged_attention_workspace(
+            S, Q, H, KVH, Dh, MB), dtype=torch.float32, device="cuda")
+        return self.lib.kft_paged_attention(*args[:8], ws.data_ptr(),
+                                            *args[8:])
+
+
+def bind(path: str, source: str = "flash_attention"):
     lib = ctypes.CDLL(path)
-    for fn, (argtypes, restype) in _build.SIGNATURES[
-            "flash_attention"].items():
+    if source == "paged_attention" and hasattr(
+            lib, "kft_paged_attention_workspace"):
+        return _WorkspaceK5(lib)
+    for fn, (argtypes, restype) in _build.SIGNATURES[source].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
+
+
+def check_and_time_delta(name: str, device, timer) -> int:
+    """K2 at SHAPES, with and without an lse cotangent, against its plain
+    version (the f32 limits), twice for a bitwise repeat, and timed beside
+    torch.linalg.vecdot: returns the number of failures."""
+    import chip_smoke as CS
+    fails = 0
+    for tag, shape in SHAPES.items():
+        s = dict(CS.FLASH_470M, **shape)
+        B, Tq, Tk, H, KVH, D = (s[k] for k in ("B", "Tq", "Tk", "H", "KVH",
+                                               "D"))
+        q, k, v, do, dlse = CS.flash_inputs(device, B, Tq, Tk, H, KVH, D,
+                                            s["dtype"], 7)
+        out, _ = FA.flash_forward(q, k, v, True, H // KVH)
+        vecdot = lambda: torch.linalg.vecdot(out, do, dim=-1)
+        over, repeat = {}, True
+        for lse_ct in (None, dlse):
+            runs = [FA.flash_delta(out, do, lse_ct) for _ in range(2)]
+            want = FA._delta_plain(out, do, lse_ct)
+            errs = {"delta": CS.flash_errors("delta", runs[0], want)}
+            if CS.flash_over(errs, "bf16"):
+                over["delta" if lse_ct is None else "delta_dlse"] = errs
+            repeat &= torch.equal(*runs)
+        fails += bool(over) + (not repeat)
+        print(json.dumps({
+            "variant": name, "shape": tag, "kernel": "fa_delta",
+            "over": over, "bitwise_repeat": repeat,
+            "ms": timer(lambda: FA.flash_delta(out, do)),
+            "read_flush_ms": timer(lambda: FA.flash_delta(out, do),
+                                   read_flush=True),
+            "vecdot_ms": timer(vecdot),
+            "vecdot_read_flush_ms": timer(vecdot, read_flush=True)}),
+              flush=True)
+    return fails
+
+
+def check_and_time_paged(name: str, device, timer, sdpa: bool) -> int:
+    """K5 at chip_smoke.K5_CASES against its plain version, a bitwise
+    repeat, and its time at each chip_smoke.K5_TIME_ROWS row: returns the
+    number of failures."""
+    import numpy as np
+    import chip_smoke as CS
+    from ..ops import paged_attention as PA
+    fails = 0
+    rng = np.random.RandomState(0)
+    for case, (dtype, Q, quant, tol) in CS.K5_CASES.items():
+        inp = CS.k5_inputs(device, dtype, Q, quant, rng)
+        runs = [PA.paged_attention_queries(**inp) for _ in range(2)]
+        excess = CS.k5_excess(runs[0],
+                              PA.paged_attention_queries_ref(**inp), tol)
+        repeat = torch.equal(*runs)
+        fails += (not excess <= 1) + (not repeat)
+        print(json.dumps({"variant": name, "case": case, "excess": excess,
+                          "bitwise_repeat": repeat}), flush=True)
+    for row in CS.K5_TIME_ROWS:
+        inp = CS.k5_time_inputs(device, row)
+        excess = CS.k5_excess(PA.paged_attention_queries(**inp),
+                              PA.paged_attention_queries_ref(**inp),
+                              CS.K5_TOL)
+        fails += not excess <= 1
+        rec = {"variant": name, "shape": row, "kernel": "paged_attention",
+               "excess": excess,
+               "ms": timer(lambda: PA.paged_attention_queries(**inp)),
+               "read_flush_ms": timer(
+                   lambda: PA.paged_attention_queries(**inp),
+                   read_flush=True),
+               "bound_ms": CS.k5_bound(inp)["bound_ms"]}
+        if sdpa:
+            rec["sdpa_ms"] = timer(lambda: CS.sdpa_yardstick(inp))
+        print(json.dumps(rec), flush=True)
+    return fails
 
 
 def check_and_time_fwd(name: str, device, timer, sdpa: bool) -> int:
@@ -140,11 +255,17 @@ def check_and_time_fwd(name: str, device, timer, sdpa: bool) -> int:
 
 
 def check_and_time(name: str, lib_path: str, cases, sdpa: bool,
-                   fwd: bool = False) -> int:
+                   mode: str = "bwd") -> int:
     """One variant, in this process: returns the number of failures."""
     import chip_smoke as CS
     device = torch.device("cuda")
-    _build._libs["flash_attention"] = bind(lib_path)
+    source = MODES[mode][0]
+    _build._libs[source] = bind(lib_path, source)
+    timer = Timer(device)
+    if mode == "paged":
+        return check_and_time_paged(name, device, timer, sdpa)
+    if mode == "delta":
+        return check_and_time_delta(name, device, timer)
     fails = 0
     for case in cases:
         errs = CS.flash_case(device, case)
@@ -152,8 +273,7 @@ def check_and_time(name: str, lib_path: str, cases, sdpa: bool,
         fails += bool(over)
         print(json.dumps({"variant": name, "case": case, "over": over}),
               flush=True)
-    timer = Timer(device)
-    if fwd:
+    if mode == "fwd":
         return fails + check_and_time_fwd(name, device, timer, sdpa)
     for tag, shape in SHAPES.items():
         s = dict(CS.FLASH_470M, **shape)
@@ -195,14 +315,21 @@ def main(argv=None) -> int:
     ap.add_argument("--cases", default="",
                     help="comma-separated chip_smoke.FLASH_CASES names")
     ap.add_argument("--sdpa", action="store_true")
-    ap.add_argument("--fwd", action="store_true",
-                    help="K1 and K6 in place of K3 and K4")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--fwd", action="store_const", dest="mode",
+                      const="fwd", help="K1 and K6 in place of K3 and K4")
+    mode.add_argument("--delta", action="store_const", dest="mode",
+                      const="delta", help="K2 in place of K3 and K4")
+    mode.add_argument("--paged", action="store_const", dest="mode",
+                      const="paged",
+                      help="K5 (paged_attention.cu) in place of K3 and K4")
+    ap.set_defaults(mode="bwd")
     ap.add_argument("--worker", nargs=2, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     cases = [c for c in args.cases.split(",") if c]
     if args.worker:
         return 1 if check_and_time(*args.worker, cases, args.sdpa,
-                                   args.fwd) else 0
+                                   args.mode) else 0
     if not torch.cuda.is_available():
         print("flash_variants: no CUDA device", file=sys.stderr)
         return 1
@@ -212,7 +339,8 @@ def main(argv=None) -> int:
 
 
 def build_and_run(variants: dict, tmp: Path, args) -> int:
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+    source, kernels = MODES[args.mode]
+    src = (_build.CSRC / f"{source}.cu").read_text()
     t0 = time.perf_counter()
     procs = {}
     for name, variant in variants.items():
@@ -222,9 +350,8 @@ def build_and_run(variants: dict, tmp: Path, args) -> int:
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp / f"{name}.so"),
              str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
-    _build.build(["flash_attention"])
-    default = _build.library_path("flash_attention")
-    kernels = FWD_KERNELS if args.fwd else BWD_KERNELS
+    _build.build([source])
+    default = _build.library_path(source)
     libs = {"default": str(default)}
     ptxas = {"default": ptxas_lines(
         default.with_name(default.name + ".log").read_text(), kernels)}
@@ -242,7 +369,8 @@ def build_and_run(variants: dict, tmp: Path, args) -> int:
         for name, path in order if rnd % 2 == 0 else order[::-1]:
             cmd = [sys.executable, "-m", __spec__.name, args.variants,
                    "--cases", args.cases, "--worker", name, path]
-            cmd += ["--sdpa"] * args.sdpa + ["--fwd"] * args.fwd
+            cmd += ["--sdpa"] * args.sdpa
+            cmd += [f"--{args.mode}"] * (args.mode != "bwd")
             rc |= subprocess.run(cmd).returncode
     return rc
 

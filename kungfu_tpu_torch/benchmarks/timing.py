@@ -19,7 +19,10 @@ import torch
 class Timer:
     """``timer(fn, reps=n)``: the median over ``runs`` runs of one call's
     time in ms, where a run is ``reps`` calls of ``fn`` after ``warmup``
-    untimed calls."""
+    untimed calls.  The flush zeroes 96 MB, so L2 is left full of dirty
+    lines that a read-bound run writes back as it misses; with
+    ``read_flush=True`` the flush reads the buffer instead and leaves L2
+    clean (the difference is what that write-back costs the run)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -28,7 +31,7 @@ class Timer:
                       if self.device.type == "cuda" else None)
 
     def __call__(self, fn, warmup: int = 3, runs: int = 25,
-                 reps: int = 1) -> float:
+                 reps: int = 1, read_flush: bool = False) -> float:
         for _ in range(warmup):
             fn()
         times = []
@@ -39,7 +42,10 @@ class Timer:
                     fn()
                 times.append((time.perf_counter() - t0) * 1e3 / reps)
                 continue
-            self.flush.zero_()
+            if read_flush:
+                self.flush.sum()
+            else:
+                self.flush.zero_()
             torch.cuda._sleep(1_000_000)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)

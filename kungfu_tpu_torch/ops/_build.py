@@ -47,11 +47,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "kft_nosoftmax_fwd": ([_P] * 4 + [_L3] * 4 + [_I] * 5 + [_P], _I),
     },
     "paged_attention": {
-        # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, workspace,
-        # S, Q, H, KVH, Dh, bs, MB, dtype, quant, scale, stream
-        "kft_paged_attention": ([_P] * 9 + [_I] * 9 + [_F, _P], _I),
-        # S, Q, H, KVH, Dh, MB -> f32 workspace elements
-        "kft_paged_attention_workspace": ([_I] * 6, ctypes.c_longlong),
+        # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, S, Q, H,
+        # KVH, Dh, bs, MB, dtype, quant, scale, stream
+        "kft_paged_attention": ([_P] * 8 + [_I] * 9 + [_F, _P], _I),
     },
 }
 

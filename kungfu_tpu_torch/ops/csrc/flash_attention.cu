@@ -44,10 +44,14 @@
 // K1 also meets the special-function unit: one exp2 per score against 256
 // tensor-core flops per score, the two rates' ratio on this card.
 //
-// K2 and the f32 K1/K3/K4 (the first version): the f32 products are
-// scalar FMAs from synchronously staged shared-memory tiles; the
-// online-softmax state and the accumulators stay in registers, and nothing
-// of size [T, T] ever reaches device memory.
+// K2, redesigned for Hopper: 16-byte loads, a lane group per row and
+// several rows a thread, every load in flight before the first FMA (its
+// note at fa_delta below).
+//
+// The f32 K1/K3/K4 (the first version): the f32 products are scalar FMAs
+// from synchronously staged shared-memory tiles; the online-softmax state
+// and the accumulators stay in registers, and nothing of size [T, T] ever
+// reaches device memory.
 //
 // The bf16 K1, K3, K4 and K6, redesigned for Hopper: each warpgroup
 // issues its products as wgmma (s and dp with both operands in shared
@@ -625,29 +629,63 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------ K2
-// delta[b, h, t] = sum_d dO * O in f32, minus dlse when given; one warp
-// per row.
+// delta[b, h, t] = sum_d dO * O in f32, minus dlse when given.  Bound by
+// bytes: O and dO are read once (17 MB at the 470m shapes), nothing is
+// reused.  So the loads are 16 bytes wide and many are in flight: a row
+// is read by a group of D / VEC lanes (8 at D64 bf16, 16 at D128), one
+// load of O and one of dO a lane, and the group sums by shuffles (3-4
+// steps); consecutive groups take consecutive rows of one head, so a
+// warp's delta stores are one contiguous run.  Measured slower: 2, 4 or 8
+// rows a thread with all their loads issued first (fewer warps to hide
+// the loads' latency), and rows in the inputs' memory order (h fastest).
+// The order of the sums is fixed: the same bits on every call.
+constexpr int kDeltaThreads = 256;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fa_delta(const Params p, int D) {
-  const long long row = static_cast<long long>(blockIdx.x) * kWarps +
-                        (threadIdx.x >> 5);
-  const long long rows = static_cast<long long>(p.B) * p.H * p.Tq;
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const int tq = static_cast<int>(row % p.Tq);
-  const int bh = static_cast<int>(row / p.Tq);
-  const int b = bh / p.H, h = bh % p.H;
-  const T* o = static_cast<const T*>(p.o) + b * p.os[0] + tq * p.os[1] +
-               h * p.os[2];
-  const T* d = static_cast<const T*>(p.dout) + b * p.dos[0] +
-               tq * p.dos[1] + h * p.dos[2];
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b) {
+  const uint32_t* x = reinterpret_cast<const uint32_t*>(&a);
+  const uint32_t* y = reinterpret_cast<const uint32_t*>(&b);
   float s = 0.f;
-  for (int i = lane; i < D; i += 32) s = fmaf(to_f(o[i]), to_f(d[i]), s);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      const float2 u = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(x + i));
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(y + i));
+      s = fmaf(u.x, v.x, s);
+      s = fmaf(u.y, v.y, s);
+    } else {
+      s = fmaf(__uint_as_float(x[i]), __uint_as_float(y[i]), s);
+    }
+  }
+  return s;
+}
+
+// Grid: one lane group per row, kDeltaThreads threads a block.
+template <typename T, int D>
+__global__ void __launch_bounds__(kDeltaThreads) fa_delta(const Params p) {
+  constexpr int VEC = 16 / sizeof(T);    // elements per 16-byte load
+  constexpr int LPR = D / VEC;           // lanes per row
+  static_assert(LPR <= 32 && 32 % LPR == 0, "a row within one warp");
+  const int rows = p.B * p.H * p.Tq;
+  const int sub = threadIdx.x % LPR;
+  const int row = (blockIdx.x * kDeltaThreads + threadIdx.x) / LPR;
+  float s = 0.f;
+  if (row < rows) {
+    const int bh = row / p.Tq, t = row - bh * p.Tq;
+    const int b = bh / p.H, h = bh - b * p.H;
+    const T* op = static_cast<const T*>(p.o) + b * p.os[0] + t * p.os[1] +
+                  h * p.os[2] + sub * VEC;
+    const T* dp = static_cast<const T*>(p.dout) + b * p.dos[0] +
+                  t * p.dos[1] + h * p.dos[2] + sub * VEC;
+    s = dot16<T>(__ldg(reinterpret_cast<const uint4*>(op)),
+                 __ldg(reinterpret_cast<const uint4*>(dp)));
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0)
+  if (sub == 0 && row < rows)
     p.delta_out[row] = p.dlse != nullptr ? s - p.dlse[row] : s;
 }
 
@@ -1688,14 +1726,28 @@ extern "C" int kft_flash_delta(const void* o, const void* dout,
   p.delta_out = delta;
   set3(p.os, os);
   set3(p.dos, dos);
-  const dim3 grid(static_cast<unsigned>((rows + kWarps - 1) / kWarps));
+  // thread indices (up to 32 lanes a row) stay within int
+  if (rows * 32 > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    fa_delta<float><<<grid, kThreads, 0, st>>>(p, D);
-  else if (dtype == 1)
-    fa_delta<bf16><<<grid, kThreads, 0, st>>>(p, D);
+  // one lane group of D * sizeof(T) / 16 lanes per row
+  auto grid = [&](int lanes_per_row) {
+    return dim3(static_cast<unsigned>(
+        (rows * lanes_per_row + kDeltaThreads - 1) / kDeltaThreads));
+  };
+#define KFT_DELTA(T, DD)                                                     \
+  fa_delta<T, DD><<<grid(DD * sizeof(T) / 16), kDeltaThreads, 0, st>>>(p)
+  if (dtype == 0 && D == 64)
+    KFT_DELTA(float, 64);
+  else if (dtype == 0 && D == 128)
+    KFT_DELTA(float, 128);
+  else if (dtype == 1 && D == 64)
+    KFT_DELTA(bf16, 64);
+  else if (dtype == 1 && D == 128)
+    KFT_DELTA(bf16, 128);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+#undef KFT_DELTA
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -130,18 +130,14 @@ def _launch(q, k_pool, v_pool, tables, pos, k_scale, v_scale):
     lib = _build.load("paged_attention")
     MB = tables.shape[1]
     out = torch.empty_like(q)
-    # the per-block partial softmax states the kernel's merge pass reads
-    workspace = torch.empty(
-        lib.kft_paged_attention_workspace(S, Q, H, KVH, Dh, MB),
-        dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.kft_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None,
-            tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            workspace.data_ptr(), S, Q, H, KVH, Dh, bs, MB,
+            tables.data_ptr(), pos.data_ptr(), out.data_ptr(), S, Q, H,
+            KVH, Dh, bs, MB,
             _DTYPE_CODES[q.dtype], int(quant), 1.0 / math.sqrt(Dh), stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

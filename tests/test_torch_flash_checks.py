@@ -7,7 +7,8 @@ relies on to see a wrong kernel, at small sizes.
   tiled forward reads below it.
 - The K1 cases added for the wgmma tile loop run through the autograd
   function's CPU path (the kernels' plain versions) within FLASH_TOL.
-- The build's spill check flags a bf16 K1 or K6 instantiation only.
+- The build's spill check flags a bf16 K1 or K6 instantiation, not an f32
+  one or K3/K4.
 """
 import math
 
@@ -81,8 +82,8 @@ def test_fwd_spills_flags_bf16_forward_kernels_only():
         "spill stores, 8 bytes spill loads",
         "fa_bwd_dkvILi64ELi32ELi4EEEvNS_6ParamsEf: 16 bytes stack frame, "
         "16 bytes spill stores, 16 bytes spill loads"]
-    assert CS.fwd_spills(lines) == lines[:1]
-    assert CS.fwd_spills(lines[1:]) == []
+    assert CS.bf16_spills(lines) == lines[:1]
+    assert CS.bf16_spills(lines[1:]) == []
 
 
 def test_variant_tool_reads_forward_ptxas_lines():

@@ -30,12 +30,13 @@ def cuda_device():
 
 def _inputs(device, dtype, Q, quant, S=6, H=16, KVH=4, Dh=64, bs=32, MB=8,
             seed=5):
-    """Ragged slots (one at position 0) with distinct blocks and a
-    poisoned scratch block 0 that no visible position maps to."""
+    """Ragged slots (one at position 0, one at the last) with distinct
+    blocks and a poisoned scratch block 0 that no visible position maps
+    to."""
     rng = np.random.RandomState(seed)
     N = S * MB + 1
     pos = rng.randint(0, MB * bs, S).astype(np.int32)
-    pos[0] = 0
+    pos[0], pos[1] = 0, MB * bs - 1      # one slot at the last position
     tables = np.zeros((S, MB), np.int32)
     free = list(range(1, N))
     rng.shuffle(free)
@@ -56,13 +57,36 @@ def _inputs(device, dtype, Q, quant, S=6, H=16, KVH=4, Dh=64, bs=32, MB=8,
                 pos=t(pos, torch.int32), k_scale=ks, v_scale=vs)
 
 
-@pytest.mark.parametrize("dtype,quant,Q,H,KVH", [
-    (torch.float32, False, 1, 16, 4), (torch.bfloat16, False, 1, 16, 4),
-    (torch.bfloat16, False, 4, 16, 4), (torch.float32, True, 3, 8, 2),
-    (torch.bfloat16, True, 1, 16, 4), (torch.float32, False, 2, 4, 4)])
-def test_paged_attention_kernel_matches_plain(cuda_device, dtype, quant, Q,
-                                              H, KVH):
-    inp = _inputs(cuda_device, dtype, Q, quant, H=H, KVH=KVH)
+BF, F32 = torch.bfloat16, torch.float32
+# dtype, int8 pool, Q, H, KVH, Dh, bs, MB
+K5_KERNEL_CASES = {
+    "f32_q1": (F32, False, 1, 16, 4, 64, 32, 8),
+    "bf16_q1": (BF, False, 1, 16, 4, 64, 32, 8),
+    "bf16_q4": (BF, False, 4, 16, 4, 64, 32, 8),
+    "f32_int8_q3_g4": (F32, True, 3, 8, 2, 64, 32, 8),
+    "bf16_int8_q1": (BF, True, 1, 16, 4, 64, 32, 8),
+    "f32_q2_mha": (F32, False, 2, 4, 4, 64, 32, 8),
+    # head_dim 128 (the 470m-hd128 heads), in bf16 and int8
+    "bf16_d128": (BF, False, 1, 8, 2, 128, 32, 8),
+    "bf16_int8_d128_q2": (BF, True, 2, 8, 2, 128, 32, 8),
+    # head_dim 16 through the generic form (the on-card engine test's)
+    "bf16_d16_q2": (BF, False, 2, 8, 2, 16, 8, 8),
+    "f32_d16": (F32, False, 1, 8, 2, 16, 8, 8),
+    # 40 blocks of 16 keys: a warp walks two blocks, the ring wraps
+    "bf16_bs16_mb40": (BF, False, 1, 16, 4, 64, 16, 40),
+    "bf16_int8_bs16_mb40_q2": (BF, True, 2, 16, 4, 64, 16, 40),
+    "f32_bs16_mb40": (F32, False, 1, 16, 4, 64, 16, 40),
+    # Q * G = 24 rows: two 16-row tiles
+    "bf16_q3_g8_rows24": (BF, False, 3, 16, 2, 64, 32, 8),
+    "f32_q3_g8_rows24": (F32, False, 3, 16, 2, 64, 32, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(K5_KERNEL_CASES))
+def test_paged_attention_kernel_matches_plain(cuda_device, case):
+    dtype, quant, Q, H, KVH, Dh, bs, MB = K5_KERNEL_CASES[case]
+    inp = _inputs(cuda_device, dtype, Q, quant, H=H, KVH=KVH, Dh=Dh, bs=bs,
+                  MB=MB)
     before = PA.launches
     got = PA.paged_attention_queries(**inp)
     torch.cuda.synchronize()
@@ -73,6 +97,20 @@ def test_paged_attention_kernel_matches_plain(cuda_device, dtype, quant, Q,
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize("case", ["bf16_q1", "bf16_bs16_mb40", "f32_q1",
+                                  "bf16_int8_d128_q2"])
+def test_paged_attention_repeats_bitwise(cuda_device, case):
+    """Two launches on the same inputs give the same bits: the cluster
+    merges its ranks in a fixed order, with no atomics."""
+    dtype, quant, Q, H, KVH, Dh, bs, MB = K5_KERNEL_CASES[case]
+    inp = _inputs(cuda_device, dtype, Q, quant, H=H, KVH=KVH, Dh=Dh, bs=bs,
+                  MB=MB)
+    first = PA.paged_attention_queries(**inp)
+    second = PA.paged_attention_queries(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_paged_attention_kernel_rejects_bad_inputs(cuda_device):
@@ -144,6 +182,49 @@ def test_flash_backward_repeats_bitwise(cuda_device, H, KVH, D):
     torch.cuda.synchronize()
     for first, second in zip(*runs):
         assert torch.equal(first, second)
+
+
+def _delta_inputs(device, D, dt, strided, B=2, T=300, H=4):
+    """out and dout [B, T, H, D]; ``strided``: out a view of a
+    [B, H, T, D] tensor and dout one of a wider last dimension (rows
+    stay 16-byte aligned, as the kernel needs)."""
+    g = torch.Generator(device=device).manual_seed(D + strided)
+    mk = lambda *s: torch.randn(s, generator=g, device=device).to(
+        chip_smoke._DT[dt])
+    if not strided:
+        return mk(B, T, H, D), mk(B, T, H, D)
+    return mk(B, H, T, D).transpose(1, 2), mk(B, T, H, D + 16)[..., :D]
+
+
+@pytest.mark.parametrize("strided", [False, True],
+                         ids=["contiguous", "strided"])
+@pytest.mark.parametrize("with_dlse", [False, True],
+                         ids=["no_dlse", "dlse"])
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_delta_matches_plain(cuda_device, D, dt, with_dlse, strided):
+    """K2 against its plain version within the f32 limits (a ragged T, so
+    the last warp's rows run past the end)."""
+    out, dout = _delta_inputs(cuda_device, D, dt, strided)
+    B, T, H, _ = out.shape
+    dlse = (torch.randn((B, H, T), device=cuda_device) if with_dlse
+            else None)
+    before = FA.launches["fa_delta"]
+    got = FA.flash_delta(out, dout, dlse)
+    torch.cuda.synchronize()
+    assert FA.launches["fa_delta"] == before + 1
+    errs = {"delta": chip_smoke.flash_errors(
+        "delta", got, FA._delta_plain(out, dout, dlse))}
+    assert chip_smoke.flash_over(errs, dt) == {}
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_delta_repeats_bitwise(cuda_device, D):
+    out, dout = _delta_inputs(cuda_device, D, "bf16", False, T=2048, H=16)
+    first = FA.flash_delta(out, dout)
+    second = FA.flash_delta(out, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_flash_kernels_reject_bad_inputs(cuda_device):
