@@ -50,7 +50,19 @@
    ceilings beside the data-sheet ones that the bounds use;
 9. trains the head_dim-128 470m (--preset 470m-hd128: 8 heads, 2 KV
    heads) for 1 warm-up and 2 timed steps, K1-K4 at every layer of every
-   microbatch, and profiles one of its microbatches.
+   microbatch, and profiles one of its microbatches;
+10. holds full-width ResNet-50 in f32 on the card against the same
+   weights on the CPU (eval and train logits, the running statistics,
+   one train step) and the bf16 model against the f32 one; trains it
+   through kungfu_tpu_torch.benchmarks.resnet's code (bench.py's run:
+   224 x 224, batch 256, bf16 over f32 parameters, sync-SGD nesterov, 5
+   warm-up and 20 timed steps: images/s beside the V100 baseline, MFU,
+   peak memory) and profiles one step; stages 4 full-size batches through
+   the Prefetcher's pinned memory and side stream (bit-identical, in
+   order, the H2D rate) and checks a step fed from it; and runs one
+   forward and backward of BERT-base in bf16 against f32.  No hand
+   kernel lies on this path (cuDNN convolutions, PyTorch ops), so the
+   kernels record is that of phases 2-8.
 
 Each phase prints a JSON line.  The last two lines are the kernels record
 and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; so
@@ -58,6 +70,7 @@ does a machine without a CUDA device.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -75,8 +88,10 @@ import torch.nn.functional as F
 
 from kungfu_tpu_torch.benchmarks import flash_variants as FV
 from kungfu_tpu_torch.benchmarks import gpt as BG
+from kungfu_tpu_torch.benchmarks import resnet as BR
 from kungfu_tpu_torch.benchmarks import roofline as RL
 from kungfu_tpu_torch.benchmarks.timing import Timer
+from kungfu_tpu_torch.comm.mesh import flat_mesh
 from kungfu_tpu_torch.models import gpt as G
 from kungfu_tpu_torch.ops import _build
 from kungfu_tpu_torch.ops import flash_attention as FA
@@ -946,13 +961,39 @@ def phase_train(device, preset: str = "470m") -> dict:
                 "model_tflops_per_sec", "loss", "backend", "device")}}
 
 
+def profile_run(run) -> tuple:
+    """``run()`` once under torch.profiler, ending synchronised: the
+    device time and launches by kernel name, and the wall time, device
+    busy time and share (summed kernel time / wall time; one stream), the
+    launches and the top 10 kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kernels[ev.key] = (kernels.get(ev.key, (0, 0))[0]
+                               + ev.self_device_time_total,
+                               kernels.get(ev.key, (0, 0))[1] + ev.count)
+    busy_us = sum(v[0] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    return kernels, {
+        "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "launches": sum(v[1] for v in kernels.values()),
+        "top_kernels_ms": [[k[:90], v[0] / 1e3, v[1]] for k, v in top]}
+
+
 def phase_train_profile(device, preset: str = "470m") -> dict:
     """Where a microbatch's time goes (470m or 470m-hd128): one forward +
     backward of the training loss (2 x 2048 tokens, bf16 compute copy)
-    under torch.profiler.  Device busy share = summed kernel time / wall
-    time (one stream)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    under torch.profiler."""
     from kungfu_tpu_torch.training import _cast_params
     from kungfu_tpu_torch.utils.tree import tree_leaves
     args = BG.parse_args(["--preset", preset, "--device", "cuda"])
@@ -972,29 +1013,12 @@ def phase_train_profile(device, preset: str = "470m") -> dict:
         return torch.autograd.grad(loss_fn(params, batch), leaves)
 
     micro()                                            # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        micro()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            kernels[ev.key] = (kernels.get(ev.key, (0, 0))[0]
-                               + ev.self_device_time_total,
-                               kernels.get(ev.key, (0, 0))[1] + ev.count)
-    busy_us = sum(v[0] for v in kernels.values())
+    kernels, rec = profile_run(micro)
     flash = {name: sum(v[0] for k, v in kernels.items()
                        if f"{name}<" in k) / 1e3
              for name in FA.launches}
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / 1e6 / wall,
-            "launches": sum(v[1] for v in kernels.values()),
-            "flash_ms": flash,
-            "top_kernels_ms": [[k[:90], v[0] / 1e3, v[1]] for k, v in top]}
+    top = rec.pop("top_kernels_ms")
+    return {**rec, "flash_ms": flash, "top_kernels_ms": top}
 
 
 def phase_train_flash_vs_dense_f32_2l(device) -> dict:
@@ -1237,6 +1261,297 @@ def phase_roofline(device, smi: str, k6_times: dict) -> dict:
                           "hbm_tb_per_s": HBM_BYTES_PER_S / 1e12}}
 
 
+# ------------------------------------------- phase 10: ResNet-50 training
+# Limits, each as a share of the reference's largest |value| (logits) or
+# of max(1, |value|) per tensor (statistics, parameters):
+# - f32 on the card against f32 on the CPU, the same weights and batch:
+#   convolution algorithms and reduction orders differ (cuDNN may take
+#   Winograd or FFT forms in f32; TF32 is off), nothing else;
+# - bf16 on the card against f32 on the card: bf16 activations through
+#   50 layers (8 bits of mantissa, about 4e-3 a rounding).
+RESNET_TOL = {"f32": 1e-3, "bf16": 5e-2}
+RESNET_CHECK_BATCH, RESNET_CHECK_IMAGE = 8, 224
+
+
+def resnet_perturb(model, seed: int = 0):
+    """Move every BatchNorm's scale, bias and running statistics off
+    their initial values, in place, from a seed: a block's last scale
+    starts at 0 and would hide its branch (it gets 0.2 N(0, 1)), and
+    statistics at 0 and 1 would hide what eval mode does with them."""
+    from kungfu_tpu_torch.models.resnet import BatchNorm
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, BatchNorm):
+                c = m.weight.shape[0]
+                base = 0.0 if name.endswith("BatchNorm_2") else 1.0
+                m.weight.copy_(base + 0.2 * torch.randn(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    return model
+
+
+def _excess(got: dict, want: dict, tol: float, per_tensor: bool) -> float:
+    """Largest |got - want| over tol x (max |want| of the whole, or of
+    each tensor but at least 1)."""
+    if per_tensor:
+        return max(float((got[k].float() - w.float()).abs().max()
+                         / (tol * max(1.0, float(w.abs().max()))))
+                   for k, w in want.items())
+    (g,), (w,) = got.values(), want.values()
+    return float((g - w).abs().max() / (tol * w.abs().max()))
+
+
+def resnet_outputs(model, x, y) -> dict:
+    """Eval logits, train logits and the running statistics after that
+    train forward, then (from the starting statistics) the loss, the
+    parameters and the statistics after one step of the bench's train
+    step, all on the CPU."""
+    dev = next(model.parameters()).device
+    x, y = x.to(dev), y.to(dev)
+    buffers = dict(model.named_buffers())
+    start = {k: v.clone() for k, v in buffers.items()}
+    host = lambda named: {k: v.detach().float().cpu() for k, v in named}
+    out = {}
+    with torch.no_grad():
+        out["eval"] = {"logits": model.eval()(x).float().cpu()}
+        out["train"] = {"logits": model.train()(x).float().cpu()}
+        out["stats"] = host(buffers.items())
+        for k, v in buffers.items():
+            v.copy_(start[k])
+    with BG.solo_group(dev):
+        step = BR.build_step(model, flat_mesh(n=1))
+        out["loss"] = {"loss": step((x, y)).float().cpu().reshape(1)}
+    out["params_step"] = host(model.named_parameters())
+    out["stats_step"] = host(model.named_buffers())
+    return out
+
+
+def resnet_compare(got: dict, want: dict, tol: float) -> dict:
+    """Each output of :func:`resnet_outputs` as a multiple of its limit."""
+    return {k: _excess(got[k], want[k], tol,
+                       k in ("stats", "params_step", "stats_step"))
+            for k in want}
+
+
+def resnet_card_vs_cpu(device, batch: int, image: int,
+                       stage_sizes=(3, 4, 6, 3)) -> dict:
+    """The same f32 ResNet (seeded, BatchNorm perturbed) and batch on the
+    card and on the CPU: each output of :func:`resnet_outputs` as a
+    multiple of ``RESNET_TOL["f32"]`` (> 1 fails)."""
+    from kungfu_tpu_torch.models.resnet import ResNet
+    args = BR.parse_args(["--batch", str(batch), "--image-size",
+                          str(image), "--f32"])
+    ref = resnet_perturb(ResNet(list(stage_sizes), dtype=torch.float32
+                                ).init(0))
+    card = copy.deepcopy(ref).to(device)
+    x, y = BR.make_batch(args, torch.device("cpu"))
+    return resnet_compare(resnet_outputs(card, x, y),
+                          resnet_outputs(ref, x, y), RESNET_TOL["f32"])
+
+
+def phase_resnet_check(device) -> dict:
+    """Full ResNet-50 (224 x 224, 1000 classes) in f32 on the card against
+    the same converted weights on the CPU, at a batch of 8; then the bf16
+    model against the f32 one on the card.  Any output over its limit
+    fails the phase."""
+    from kungfu_tpu_torch.models.resnet import ResNet50
+    t0 = time.perf_counter()
+    f32 = resnet_card_vs_cpu(device, RESNET_CHECK_BATCH, RESNET_CHECK_IMAGE)
+    args = BR.parse_args(["--batch", str(RESNET_CHECK_BATCH)])
+    ref = resnet_perturb(ResNet50(dtype=torch.float32).init(0))
+    bf = ResNet50(dtype=torch.bfloat16)
+    bf.load_state_dict(ref.state_dict())
+    x, y = BR.make_batch(args, torch.device("cpu"))
+    bf16 = resnet_compare(resnet_outputs(bf.to(device), x, y),
+                          resnet_outputs(ref.to(device), x, y),
+                          RESNET_TOL["bf16"])
+    over = {f"{tag}.{k}": v for tag, d in (("f32", f32), ("bf16", bf16))
+            for k, v in d.items() if not v <= 1}
+    if over:
+        raise RuntimeError(f"ResNet-50 outputs over their limits "
+                           f"{RESNET_TOL}: {over}")
+    return {"batch": RESNET_CHECK_BATCH, "image": RESNET_CHECK_IMAGE,
+            "limits": RESNET_TOL, "f32_card_vs_cpu_over_limit": f32,
+            "bf16_vs_f32_card_over_limit": bf16,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_train_resnet50(device) -> dict:
+    """The main path: ``python -m kungfu_tpu_torch.benchmarks.resnet`` on
+    the card through the bench entry's own code (full-width ResNet-50,
+    224 x 224, batch 256, bf16 over f32 parameters, sync-SGD nesterov,
+    5 warm-up and 20 timed steps)."""
+    args = BR.parse_args(["--device", "cuda"])
+    torch.cuda.empty_cache()
+    with BG.solo_group(device):
+        out = BR.train(args, device)
+    if out["metric"] != "resnet50_images_per_sec_per_gpu" or not all(
+            math.isfinite(out[k]) for k in ("loss_first", "loss_last")):
+        raise RuntimeError(f"ResNet-50 run: {out}")
+    return out
+
+
+# kernel groups of a ResNet step, by name (first match wins)
+RESNET_GROUPS = (("conv", r"cudnn|cutlass|xmma|fprop|dgrad|wgrad|conv"
+                  r"|implicit_gemm|sm90_"),
+                 ("batch_norm", r"batch_norm"), ("nccl", r"nccl"),
+                 ("optimizer", r"multi_tensor"), ("pooling", r"pool"))
+
+
+def phase_train_resnet50_profile(device, steps: int = 10) -> dict:
+    """Where a ResNet-50 step's time goes: one whole step of the bench's
+    train step (forward, backward, SGD, the state average, batch 256)
+    under torch.profiler, after 3 warm-up steps, with its device time by
+    kernel group; then ``steps`` steps back to back without the profiler:
+    the host time for ``step()`` to return (the launches it issues) and
+    the time a step takes in steady state (host clock, one sync at the
+    end).  Host time near the steady step time means the host sets the
+    pace."""
+    args = BR.parse_args(["--device", "cuda"])
+    torch.backends.cudnn.benchmark = True   # as the bench entry runs
+    with BG.solo_group(device):
+        model = BR.make_model(args, device).train()
+        step = BR.build_step(model, flat_mesh(n=1))
+        batch = BR.make_batch(args, device)
+        for _ in range(3):
+            float(step(batch))
+        kernels, rec = profile_run(lambda: float(step(batch)))
+        host = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            loss = step(batch)
+            host.append(time.perf_counter() - t1)
+        float(loss)
+        steady = (time.perf_counter() - t0) / steps
+    groups = {}
+    for name, (us, _) in kernels.items():
+        g = next((g for g, pat in RESNET_GROUPS if re.search(pat, name)),
+                 "elementwise_and_other")
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+    return {"batch": args.batch, **rec, "device_ms_by_group": groups,
+            "steady_ms_per_step": steady * 1e3,
+            "host_ms_per_step": statistics.median(host) * 1e3,
+            "steady_busy_share": rec["device_busy_ms"] / (steady * 1e3)}
+
+
+PREFETCH_BATCHES = 4
+
+
+def phase_prefetch(device) -> dict:
+    """The Prefetcher at the bench's batch ([256, 224, 224, 3] f32, 154
+    MB): 4 distinct batches staged through pinned memory on a side
+    stream must arrive bit-identical and in order; the H2D rate of one
+    pinned batch (CUDA events) and the pipeline's rate (host clock over
+    the 4).  Then one ResNet-50 step fed from the Prefetcher must give
+    the loss of the same batch fed directly."""
+    from kungfu_tpu_torch.data.pipeline import Prefetcher, to_device
+    args = BR.parse_args(["--device", "cuda"])
+    rng = np.random.RandomState(3)
+    src = [rng.rand(args.batch, args.image_size, args.image_size, 3
+                    ).astype(np.float32) for _ in range(PREFETCH_BATCHES)]
+    nbytes = src[0].nbytes
+    pinned = torch.from_numpy(src[0]).pin_memory()
+    pinned.to(device, non_blocking=True)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    pinned.to(device, non_blocking=True)
+    ev[1].record()
+    torch.cuda.synchronize()
+    h2d_ms = ev[0].elapsed_time(ev[1])
+    t0 = time.perf_counter()
+    with Prefetcher(iter(src), depth=2, place=to_device(device)) as pf:
+        staged = list(pf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same = [torch.equal(t.cpu(), torch.from_numpy(a))
+            for t, a in zip(staged, src)]
+    if len(staged) != PREFETCH_BATCHES or not all(same):
+        raise RuntimeError(f"prefetch: {len(staged)} batches, equal to "
+                           f"their source in order: {same}")
+    del staged
+    losses = {}
+    with BG.solo_group(device):
+        for feed in ("prefetched", "direct"):
+            model = BR.make_model(args, device).train()
+            step = BR.build_step(model, flat_mesh(n=1))
+            if feed == "direct":
+                batch = BR.make_batch(args, device)
+            else:
+                with Prefetcher(iter([BR.host_batch(args)]), depth=1,
+                                place=to_device(device)) as pf:
+                    x, y = next(pf)
+                batch = (x.permute(0, 3, 1, 2), y)
+            losses[feed] = float(step(batch))
+            del model, step, batch
+    if losses["prefetched"] != losses["direct"]:
+        raise RuntimeError(f"a step fed from the Prefetcher: {losses}")
+    return {"batches": PREFETCH_BATCHES, "batch_mb": nbytes / 1e6,
+            "bit_identical_in_order": True,
+            "h2d_gb_per_s": nbytes / h2d_ms / 1e6,
+            "pipeline_gb_per_s": PREFETCH_BATCHES * nbytes / wall / 1e9,
+            "step_loss": losses}
+
+
+# bf16 against f32 on the card, BERT-base: the logits and the loss of one
+# forward, the gradients of one backward (relative L2 over all of them)
+BERT_TOL = {"logits": 5e-2, "loss": 1e-2, "grads": 5e-2}
+BERT_BATCH, BERT_SEQ = 8, 512
+
+
+def phase_bert_base(device) -> dict:
+    """One forward and one backward of BERT-base at full width (12 layers,
+    768 wide, 30522 tokens, 8 x 512 tokens, the last row padded from 384
+    on) in bf16 against f32 on the card, from the same seeded weights;
+    the loss predicts each input token, as the JAX tests train it."""
+    from kungfu_tpu_torch.models.bert import bert_base
+    rng = np.random.RandomState(4)
+    toks = torch.from_numpy(rng.randint(0, 30522, (BERT_BATCH, BERT_SEQ))
+                            ).to(device)
+    mask = torch.ones(BERT_BATCH, BERT_SEQ, dtype=torch.bool, device=device)
+    mask[-1, 384:] = False
+    f32 = bert_base(dtype=torch.float32).to(device).init(0)
+    bf = bert_base(dtype=torch.bfloat16).to(device)
+    bf.load_state_dict(f32.state_dict())
+    res = {}
+    for tag, model in (("f32", f32), ("bf16", bf)):
+        params = list(model.parameters())
+
+        def fwd_bwd():
+            logits = model(toks, mask)
+            loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                   toks.reshape(-1))
+            return logits, loss, torch.autograd.grad(loss, params)
+
+        fwd_bwd()                                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, loss, grads = fwd_bwd()
+        torch.cuda.synchronize()
+        res[tag] = {"ms": (time.perf_counter() - t0) * 1e3,
+                    "logits": logits.detach(), "loss": float(loss.detach()),
+                    "grads": torch.cat([g.float().reshape(-1)
+                                        for g in grads])}
+    a, b = res["bf16"], res["f32"]
+    errs = {"logits": float((a["logits"] - b["logits"]).abs().max()
+                            / b["logits"].abs().max()),
+            "loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "grads": float((a["grads"] - b["grads"]).norm()
+                           / b["grads"].norm())}
+    if not all(math.isfinite(v) and v <= BERT_TOL[k]
+               for k, v in errs.items()):
+        raise RuntimeError(f"BERT-base bf16 vs f32 {errs}, limits "
+                           f"{BERT_TOL}")
+    return {"batch": BERT_BATCH, "seq": BERT_SEQ,
+            "params": sum(p.numel() for p in f32.parameters()),
+            "bf16_vs_f32": errs, "limits": BERT_TOL,
+            "loss": {"f32": b["loss"], "bf16": a["loss"]},
+            "fwd_bwd_wall_ms": {"f32": b["ms"], "bf16": a["ms"]}}
+
+
 # the kernels' entry points in a ptxas report (nvcc names a source's
 # anonymous namespace after the file, "paged_attention_cu_<hash>")
 KERNEL_NAMES = r"(?:fa|paged_attention)_(?!cu_)\w+"
@@ -1259,7 +1574,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     device = resolve_device("cuda")
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     built = _build.build()
     ptxas = [ln for name in _build.SIGNATURES
              for ln in FV.ptxas_lines(_build.library_path(name).with_name(
@@ -1319,6 +1634,14 @@ def main() -> int:
     emit({"phase": "train_470m_hd128", **phase_train(device, "470m-hd128")})
     emit({"phase": "train_profile_470m_hd128",
           **phase_train_profile(device, "470m-hd128")})
+
+    emit({"phase": "resnet_check", **phase_resnet_check(device)})
+    emit({"phase": "train_resnet50", **phase_train_resnet50(device)})
+    emit({"phase": "train_resnet50_profile",
+          **phase_train_resnet50_profile(device)})
+    emit({"phase": "prefetch", **phase_prefetch(device)})
+    emit({"phase": "bert_base", **phase_bert_base(device)})
+    emit({"phase": "wall", "seconds": time.perf_counter() - start})
 
     print(BG.device_name(device), flush=True)
     kernels = [{

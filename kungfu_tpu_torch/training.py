@@ -7,8 +7,9 @@ stacks.  In the port each rank is a process that holds its own replica
 (the parameter tree) and its optimizer holds its own state, so neither
 has a counterpart: a rank builds its parameters, calls
 :func:`broadcast_variables` to align them with the root, and builds its
-optimizer on them.  ``build_train_step_with_state`` (BatchNorm state)
-comes with the ResNet slice.
+optimizer on them.  The steps, :func:`build_train_step` and, for models
+with state that is not trained (BatchNorm running statistics),
+:func:`build_train_step_with_state`, update the rank's tensors in place.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from . import ops
 from .comm import collectives as C
 from .utils.tree import tree_leaves, tree_map
 
@@ -66,6 +68,70 @@ def _split(batch, k: int):
             for i in range(k)]
 
 
+def _rank_batch(batch, group, local: bool):
+    """The part of ``batch`` this rank consumes: all of it when ``local``
+    (already the rank's block), else its block of the global batch."""
+    if local:
+        return batch
+    return _local_slice(batch, dist.get_rank(group),
+                        dist.get_world_size(group))
+
+
+def _accum_grads_fn(loss_fn: Callable, params, accum_steps: int,
+                    compute_dtype, has_aux: bool):
+    """Microbatch gradient accumulation and mixed precision, shared by the
+    two step builders (the JAX package's ``_accum_grads_fn`` and
+    ``_mixed_precision``: the casting rules must never diverge between
+    them).
+
+    Returns ``(masters, grads_of)``.  ``grads_of(batch, mstate=None) ->
+    (mean loss, mstate)`` splits ``batch`` into ``accum_steps``
+    microbatches, runs ``loss_fn`` on each (threading the model state
+    through them in order when ``has_aux``), accumulates the gradients in
+    f32 and leaves their mean, rounded once to the compute dtype, in the
+    ``.grad`` of each f32 master (the float leaves of ``params``)."""
+    if accum_steps < 1:
+        raise ValueError("accum_steps must be >= 1")
+    masters = [t for t in tree_leaves(params) if t.is_floating_point()]
+
+    def grads_of(batch, mstate=None):
+        micro = _split(batch, accum_steps)
+        with torch.no_grad():
+            if compute_dtype is None:
+                work = tree_map(lambda t: t.detach(), params)
+            else:
+                work = _cast_params(params, compute_dtype)
+        leaves = [t for t in tree_leaves(work) if t.is_floating_point()]
+        for t in leaves:
+            t.requires_grad_(True)
+        acc = [torch.zeros_like(t, dtype=torch.float32) for t in leaves]
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=masters[0].device)
+        for mb in micro:
+            if has_aux:
+                loss, mstate = loss_fn(work, mstate, mb)
+            else:
+                loss = loss_fn(work, mb)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with torch.no_grad():
+                for a, g in zip(acc, grads):
+                    if g is not None:
+                        a += g.float()
+                loss_sum += loss.detach().float()
+        with torch.no_grad():
+            for m, a, w in zip(masters, acc, leaves):
+                m.grad = (a / accum_steps).to(w.dtype).to(m.dtype)
+        return loss_sum / accum_steps, mstate
+
+    return masters, grads_of
+
+
+def _update(optimizer, masters) -> None:
+    optimizer.step()
+    for m in masters:
+        m.grad = None
+
+
 def build_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
                      params, group=None, accum_steps: int = 1,
                      compute_dtype=None) -> Callable:
@@ -74,10 +140,12 @@ def build_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     ``loss_fn(params, batch) -> scalar``; ``optimizer`` (usually a
     :func:`~kungfu_tpu_torch.optimizers.synchronous_sgd`) was built on
     the float leaves of ``params``, the f32 master tree.  The returned
-    ``step(global_batch) -> mean loss`` (a 0-d f32 tensor, the mean over
-    the group) takes the GLOBAL batch: each rank takes its contiguous
-    block along axis 0, as the JAX step shards the batch over lanes.  It
-    updates ``params`` in place.
+    ``step(global_batch, local=False) -> mean loss`` (a 0-d f32 tensor,
+    the mean over the group) takes the GLOBAL batch: each rank takes its
+    contiguous block along axis 0, as the JAX step shards the batch over
+    lanes.  ``local=True`` says the batch is already this rank's block,
+    as :func:`~kungfu_tpu_torch.data.pipeline.prefetch_to_mesh` stages
+    it.  The step updates ``params`` in place.
 
     ``accum_steps > 1`` splits the rank's block into that many
     microbatches and accumulates their gradients in f32; the optimizer,
@@ -92,39 +160,62 @@ def build_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     the f32 master.  Gradients come from ``torch.autograd.grad`` per
     microbatch, so ``.grad`` never accumulates in the compute dtype.
     """
-    if accum_steps < 1:
-        raise ValueError("accum_steps must be >= 1")
-    masters = [t for t in tree_leaves(params) if t.is_floating_point()]
+    masters, grads_of = _accum_grads_fn(loss_fn, params, accum_steps,
+                                        compute_dtype, has_aux=False)
 
-    def step(global_batch):
-        world = dist.get_world_size(group)
-        batch = _local_slice(global_batch, dist.get_rank(group), world)
-        micro = _split(batch, accum_steps)
+    def step(global_batch, local: bool = False):
+        loss, _ = grads_of(_rank_batch(global_batch, group, local))
+        _update(optimizer, masters)
+        return C.all_reduce(loss, group, "MEAN")
+
+    return step
+
+
+def build_train_step_with_state(loss_fn: Callable,
+                                optimizer: torch.optim.Optimizer, params,
+                                model_state, group=None,
+                                sync_model_state: bool = True,
+                                accum_steps: int = 1,
+                                compute_dtype=None) -> Callable:
+    """:func:`build_train_step` for a model with state that is not trained
+    (BatchNorm running statistics).
+
+    The model state is a tree of tensors beside the parameter tree: for an
+    ``nn.Module``, ``params = dict(model.named_parameters())`` and
+    ``model_state = dict(model.named_buffers())``, and ``loss_fn`` runs
+    the module on both through ``torch.func.functional_call``.
+    ``loss_fn(params, model_state, batch) -> (loss, new_model_state)``
+    must leave the ``model_state`` it is given as it was and return the
+    new state as new tensors.  ``step(global_batch, local=False) -> mean
+    loss`` takes the batch as :func:`build_train_step` does, updates
+    ``params`` through the optimizer and copies the new state into
+    ``model_state`` in place, so a module whose buffers they are holds
+    the trained statistics after each step.
+
+    ``accum_steps > 1``: the gradients accumulate as in
+    :func:`build_train_step`; the model state threads through the
+    microbatches in order (each sees the previous one's statistics, as
+    running them as separate steps would).  ``sync_model_state``: the new
+    state is averaged over the group after the step, in one all-reduce
+    per dtype (the per-leaf all-reduces of the JAX step, which XLA
+    combines; eager NCCL would pay a call per buffer).  Each rank
+    normalises with its own batch statistics; what is averaged is the
+    updated running statistics, not the batch statistics, as the JAX step
+    does (not ``nn.SyncBatchNorm``).  ``compute_dtype`` casts the
+    parameters as in :func:`build_train_step`; the state stays as it is.
+    """
+    masters, grads_of = _accum_grads_fn(loss_fn, params, accum_steps,
+                                        compute_dtype, has_aux=True)
+
+    def step(global_batch, local: bool = False):
+        loss, new = grads_of(_rank_batch(global_batch, group, local),
+                             model_state)
+        _update(optimizer, masters)
+        if sync_model_state:
+            new = ops.fused_all_reduce(new, group, "MEAN")
         with torch.no_grad():
-            if compute_dtype is None:
-                work = tree_map(lambda t: t.detach(), params)
-            else:
-                work = _cast_params(params, compute_dtype)
-        leaves = [t for t in tree_leaves(work) if t.is_floating_point()]
-        for t in leaves:
-            t.requires_grad_(True)
-        acc = [torch.zeros_like(t, dtype=torch.float32) for t in leaves]
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=masters[0].device)
-        for mb in micro:
-            loss = loss_fn(work, mb)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            with torch.no_grad():
-                for a, g in zip(acc, grads):
-                    if g is not None:
-                        a += g.float()
-                loss_sum += loss.detach().float()
-        with torch.no_grad():
-            for m, a, w in zip(masters, acc, leaves):
-                m.grad = (a / accum_steps).to(w.dtype).to(m.dtype)
-        optimizer.step()
-        for m in masters:
-            m.grad = None
-        return C.all_reduce(loss_sum / accum_steps, group, "MEAN")
+            for t, n in zip(tree_leaves(model_state), tree_leaves(new)):
+                t.copy_(n)
+        return C.all_reduce(loss, group, "MEAN")
 
     return step
