@@ -18,11 +18,20 @@
 3. serves the repo's 470m GPT (kungfu_tpu/benchmarks/gpt.py preset,
    seed-initialized, bf16) over HTTP through the port's ServingServer:
    16 concurrent streamed requests, checking that every decode layer-step
-   went through the kernel; profiles steady-state decode chunks
-   (torch.profiler: device busy share, launches, top kernels); then a
-   speculative (K=3) and an int8-KV engine at 4 layers;
+   went through the kernel and that ``GET /requests`` holds one finished
+   record per request; profiles steady-state decode chunks
+   (torch.profiler: device busy share, launches, top kernels); serves
+   the same traffic with int8 weights (tokens equal to the dequantized
+   oracle's, resident weight bytes at most 0.6x the bf16 engine's) and
+   profiles it; serves 16 requests sharing a 384-token system prompt with
+   the prefix cache on and off (16 hits; K5 over aliased block tables;
+   the suffix prefill's logits against a full prefill, two planted faults
+   above the limit); then a speculative (K=3), an int8-KV and an int8
+   weights + int8-KV + speculative engine at 4 layers;
 4. checks that greedy tokens of an f32 full-width engine are the same
-   with the fused kernel and with the gather path;
+   with the fused kernel and with the gather path, and, at 2 layers, with
+   the prefix cache on and off under a roomy pool, LRU eviction and
+   preemption;
 5. holds the flash-attention kernels K1-K4 (forward, delta, dq, dk/dv)
    against their plain version through autograd -- bf16 and f32, head_dim
    64 and 128, causal and not, GQA, a ragged T, Tq != Tk, an lse
@@ -97,8 +106,12 @@ from kungfu_tpu_torch.ops import _build
 from kungfu_tpu_torch.ops import flash_attention as FA
 from kungfu_tpu_torch.ops import paged_attention as PA
 from kungfu_tpu_torch.ops.flash_attention import _expand_kv_heads
+from kungfu_tpu_torch.ops.quant import (QuantizedTensor, dequantize_weights,
+                                        quantize_weights)
 from kungfu_tpu_torch.serving import DecodeEngine, Request, ServingServer
+from kungfu_tpu_torch.serving import engine as E
 from kungfu_tpu_torch.serving.cache import quantize_kv
+from kungfu_tpu_torch.utils.tree import tree_leaves
 from kungfu_tpu_torch.utils.device import resolve_device
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -374,17 +387,27 @@ def _stream(url, prompt, max_new):
     return toks, ttft, tail
 
 
-def phase_serve(params, cfg, device, n_req=16, max_new=64,
-                plen=(8, 500)) -> dict:
-    eng = DecodeEngine(params, cfg, device=device, **ENGINE)
+def tree_bytes(tree) -> int:
+    """Resident bytes of a parameter tree (an int8 weight counts its q and
+    its scale)."""
+    return sum(t.numel() * t.element_size() for leaf in tree_leaves(tree)
+               for t in ((leaf.q, leaf.scale)
+                         if isinstance(leaf, QuantizedTensor) else (leaf,)))
+
+
+def serve_traffic(eng, prompts, max_new, warmup) -> dict:
+    """Serve ``warmup`` then ``prompts`` (16 concurrent streamed clients)
+    through a ServingServer on ``eng``; K5 launches and the engine's
+    stats count the clients' run only.  Gates: every request returns
+    ``max_new`` in-range tokens; K5 launched at least layers x dispatches
+    x chunk times; ``GET /requests`` holds one finished record per
+    request, warm-up included, each with ttft <= e2e."""
     srv = ServingServer(eng, port=0).start()
-    url = f"http://{srv.host}:{srv.port}/generate"
+    base = f"http://{srv.host}:{srv.port}"
+    url = base + "/generate"
+    n_req = len(prompts)
     try:
-        _stream(url, [1, 2, 3], 2)                   # warm-up
-        rng = np.random.RandomState(2)
-        prompts = [rng.randint(0, cfg.vocab_size,
-                               int(rng.randint(*plen))).tolist()
-                   for _ in range(n_req)]
+        warm = _stream(url, warmup, 2)
         results = [None] * n_req
 
         def client(i):
@@ -401,11 +424,14 @@ def phase_serve(params, cfg, device, n_req=16, max_new=64,
             th.join(timeout=900)
         wall = time.perf_counter() - t0
         launches = PA.launches
-        with urllib.request.urlopen(
-                f"http://{srv.host}:{srv.port}/stats", timeout=60) as r:
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
+        with urllib.request.urlopen(base + "/requests?n=64",
+                                    timeout=60) as r:
+            journal = json.loads(r.read())
     finally:
         srv.close()
+    cfg = eng.cfg
     for i, res in enumerate(results):
         if res is None:
             raise RuntimeError(f"request {i} got no reply")
@@ -421,21 +447,78 @@ def phase_serve(params, cfg, device, n_req=16, max_new=64,
                            f"{need} ({cfg.n_layers} layers x "
                            f"{stats['dispatches']} dispatches x chunk "
                            f"{eng.K})")
+    uids = {warm[2]["uid"]} | {r[2]["uid"] for r in results}
+    fin = {rec["uid"]: rec for rec in journal["finished"]}
+    if set(fin) != uids or journal["open"] or any(
+            rec["outcome"] != "finish" or rec["ttft_ms"] is None
+            or rec["ttft_ms"] > rec["e2e_ms"] for rec in fin.values()):
+        raise RuntimeError(f"journal: finished {sorted(fin)} for requests "
+                           f"{sorted(uids)}, open {journal['open']}")
     return {"requests": n_req, "max_new": max_new, "wall_s": wall,
             "tokens_per_s": n_req * max_new / wall,
             "mean_ttft_s": statistics.mean(r[1] for r in results),
+            "journal_mean_ttft_s": statistics.mean(
+                fin[r[2]["uid"]]["ttft_ms"] for r in results) / 1e3,
+            "journal_records": len(fin), "slo": journal["slo"],
             "k5_launches": launches, "k5_launches_needed": need,
-            "stats": stats}
+            "weight_bytes": tree_bytes(eng.params), "stats": stats,
+            "tokens": [r[0] for r in results]}
 
 
-def phase_profile(params, cfg, device, chunks=4) -> dict:
-    """Where a decode chunk's time goes: the 470m engine with all 8 slots
-    decoding (prompts of 256), ``chunks`` steady-state chunks under
-    torch.profiler.  Device busy share = summed kernel time / wall time
-    (one stream, so kernels do not overlap); the rest is the card waiting
-    on the host."""
+def serve_prompts(cfg, n_req=16, plen=(8, 500)):
+    """The serve traffic's prompts: ``RandomState(2)``, 8-500 tokens."""
+    rng = np.random.RandomState(2)
+    return [rng.randint(0, cfg.vocab_size, int(rng.randint(*plen))).tolist()
+            for _ in range(n_req)]
+
+
+def phase_serve(params, cfg, device, max_new=64, **kw) -> dict:
+    """The 470m engine (``ENGINE``, ``kw`` on top) serving the serve
+    traffic over HTTP."""
+    eng = DecodeEngine(params, cfg, device=device, **dict(ENGINE, **kw))
+    return serve_traffic(eng, serve_prompts(cfg), max_new, [1, 2, 3])
+
+
+def phase_serve_int8w(params, cfg, device, bf16_bytes: int) -> dict:
+    """The serve traffic on ``weights_int8``.  Gates: the served engine,
+    run again on the same 16 requests, gives the tokens of a plain engine
+    on ``dequantize_weights(quantize_weights(params), bf16)`` (the same
+    weight bits and the same batches: equal by construction), and the
+    weight tree takes at most 0.6x the bf16 engine's bytes."""
+    eng = DecodeEngine(params, cfg, device=device, weights_int8=True,
+                       **ENGINE)
+    out = serve_traffic(eng, serve_prompts(cfg), 64, [1, 2, 3])
+    served = out.pop("tokens")
+    reqs = [dict(uid=i, prompt=p, max_new=64)
+            for i, p in enumerate(serve_prompts(cfg))]
+    got = eng.run([Request(**r) for r in reqs])
+    del eng
+    oracle = dequantize_weights(quantize_weights(params), cfg.dtype)
+    want = DecodeEngine(oracle, cfg, device=device, **ENGINE).run(
+        [Request(**r) for r in reqs])
+    del oracle
+    if got != want:
+        bad = [u for u in want if got.get(u) != want[u]]
+        raise RuntimeError(f"int8 engine differs from its dequantized "
+                           f"oracle on requests {bad}")
+    ratio = out["weight_bytes"] / bf16_bytes
+    if ratio > 0.6:
+        raise RuntimeError(f"int8 weights take {ratio:.3f}x the bf16 "
+                           f"engine's bytes (limit 0.6)")
+    return dict(out, oracle_tokens_equal=True, bf16_weight_bytes=bf16_bytes,
+                weight_bytes_ratio=ratio,
+                served_equal_offline=sum(served[i] == got[i]
+                                         for i in range(len(served))))
+
+
+def phase_profile(params, cfg, device, chunks=4, **kw) -> dict:
+    """Where a decode chunk's time goes: the 470m engine (``kw`` on top of
+    ``ENGINE``) with all 8 slots decoding (prompts of 256), ``chunks``
+    steady-state chunks under torch.profiler.  Device busy share = summed
+    kernel time / wall time (one stream, so kernels do not overlap); the
+    rest is the card waiting on the host."""
     from torch.profiler import ProfilerActivity, profile
-    eng = DecodeEngine(params, cfg, device=device, **ENGINE)
+    eng = DecodeEngine(params, cfg, device=device, **dict(ENGINE, **kw))
     rng = np.random.RandomState(6)
     for i in range(eng.S):
         eng.submit(Request(uid=i, prompt=rng.randint(
@@ -516,6 +599,193 @@ def phase_fused_vs_gather(device, lengths=(5, 40, 130, 300)) -> dict:
         raise RuntimeError(f"fused {out['fused']} != gather "
                            f"{out['gather']}")
     return {"requests": len(reqs), "tokens_equal": True}
+
+
+def _prefix_requests(prefix, n, max_new, bs):
+    """``n`` requests: ``prefix`` then two tokens of their own (as
+    tests/test_prefix_cache.py's, at this block size)."""
+    return [dict(uid=i, prompt=prefix + [10 + i, 20 + i], max_new=max_new)
+            for i in range(n)]
+
+
+def phase_prefix_f32(device) -> dict:
+    """tests/test_prefix_cache.py's cases on the card: a full-width
+    2-layer f32 engine, ``prefill_group=1``, 32-token blocks, so prompts
+    and lengths are the test's times 8.  Gates: greedy tokens equal the
+    cache-off engine's in each case; the cache hit (roomy pool); LRU
+    eviction made a repeat miss (1 slot, 7 blocks, prompts A B B A);
+    preemption happened (16 blocks); every reference count returns to
+    zero."""
+    cfg = G.GPTConfig(**dict(MODEL, n_layers=2), dtype=torch.float32)
+    params = G.init_params(torch.Generator(device=device).manual_seed(7),
+                           cfg)
+    bs = ENGINE["block_size"]
+    rng = np.random.RandomState(8)
+    prefix = rng.randint(0, cfg.vocab_size, 4 * bs).tolist()
+    a = rng.randint(0, cfg.vocab_size, 4 * bs + 1).tolist()
+    b = rng.randint(0, cfg.vocab_size, 4 * bs + 1).tolist()
+    cases = {
+        "roomy": (dict(num_slots=4, num_blocks=512),
+                  [_prefix_requests(prefix, 4, 48, bs)]),
+        "eviction": (dict(num_slots=1, num_blocks=8),
+                     [[dict(uid=i, prompt=p, max_new=3)]
+                      for i, p in enumerate((a, b, b, a))]),
+        "preemption": (dict(num_slots=4, num_blocks=16),
+                       [_prefix_requests(prefix, 5, 64, bs)]),
+    }
+    out = {}
+    for name, (kw, batches) in cases.items():
+        kw = dict(ENGINE, prefill_group=1, **kw)
+        on = DecodeEngine(params, cfg, device=device, prefix_cache=True,
+                          **kw)
+        off = DecodeEngine(params, cfg, device=device, **kw)
+        for reqs in batches:
+            got = on.run([Request(**r) for r in reqs])
+            want = off.run([Request(**r) for r in reqs])
+            if got != want:
+                raise RuntimeError(f"prefix {name}: tokens {got} != cache "
+                                   f"off {want}")
+        st = on.stats
+        if int((on._block_ref > 0).sum()) or (on._available()
+                                              != on._total_blocks):
+            raise RuntimeError(f"prefix {name}: references left")
+        ok = {"roomy": st.prefix_hits == 3
+              and st.prefix_tokens_reused == 3 * 4 * bs,
+              "eviction": st.prefix_hits == 1
+              and st.prefix_tokens_reused == 4 * bs,
+              "preemption": st.preemptions >= 1 and st.prefix_hits >= 1}
+        if not ok[name]:
+            raise RuntimeError(f"prefix {name}: {st.summary()}")
+        out[name] = {k: getattr(st, k) for k in (
+            "prefix_hits", "prefix_tokens_reused", "preemptions",
+            "prefills")}
+    return {"cases": out, "tokens_equal": True}
+
+
+PREFIX_SYSTEM = 384              # tokens of the shared system prompt
+PREFIX_TOL = 5e-2                # max |cached - full| / max |full| logit
+
+
+def prefix_prompts(cfg, n_req=16):
+    """A seeded 384-token system prompt, a warm-up request carrying it,
+    and ``n_req`` prompts of it plus 8-100 seeded tokens of their own."""
+    rng = np.random.RandomState(9)
+    system = rng.randint(0, cfg.vocab_size, PREFIX_SYSTEM).tolist()
+    warm = system + rng.randint(0, cfg.vocab_size, 8).tolist()
+    return warm, [system + rng.randint(0, cfg.vocab_size,
+                                       int(rng.randint(8, 101))).tolist()
+                  for _ in range(n_req)]
+
+
+def _prefix_logits(eng, prompts, shared, t_cached, fault=None):
+    """Last-position f32 logits [n, V] of ``prompts`` through the engine's
+    own prefill functions on fresh blocks: the suffix prefill over the
+    cached ``shared`` blocks (``t_cached`` tokens), or with ``shared``
+    None the full-prompt prefill.  ``fault``: "short" passes t_cached one
+    block short; "block" points one shared column at the scratch block.
+    Returns (logits, ms of the program, synchronised)."""
+    bs, n = eng.bs, len(prompts)
+    for blk in shared or []:           # no eviction may take them
+        eng._acquire_shared(blk)
+    own = [eng._alloc(-(-len(p) // bs) - len(shared or [])) for p in prompts]
+    rows = np.zeros((n, eng.max_blocks), np.int32)
+    tc = t_cached if shared is not None else 0
+    T = eng._bucket(max(len(p) for p in prompts) - tc)
+    toks = np.zeros((n, T), np.int32)
+    t_real = np.zeros(n, np.int32)
+    for g, p in enumerate(prompts):
+        blocks = (shared or []) + own[g]
+        rows[g, :len(blocks)] = blocks
+        toks[g, :len(p) - tc] = p[tc:]
+        t_real[g] = len(p) - tc
+    if fault == "block":
+        rows[:, 3] = 0
+    if fault == "short":
+        tc -= bs
+    dev = eng._dev
+    prep = E._weights_at_use(eng.cfg, eng.weights_int8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if shared is None:
+            x = E._prefill_features(eng.params, eng.cfg, bs, eng.pools,
+                                    dev(rows), dev(toks), dev(t_real), prep)
+        else:
+            x = E._prefill_cached_features(
+                eng.params, eng.cfg, bs, eng.pools, dev(rows), dev(toks),
+                dev(t_real), dev(np.full(n, tc, np.int32)), prep)
+        logits = E._last_logits(eng.params, x, dev(t_real), prep)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    for blk in [b for blocks in own for b in blocks] + (shared or []):
+        eng._release_block(blk)
+    return logits, ms
+
+
+def phase_serve_prefix(params, cfg, device) -> dict:
+    """The 470m engine with ``prefix_cache`` serving 16 streamed requests
+    that share a 384-token system prompt (12 blocks), after one warm-up
+    request carrying it seeds the cache; the same traffic with the cache
+    off, in turns (on, off, off, on), since the admission grouping of 16
+    concurrent arrivals moves tokens/s and TTFT from run to run.  Gates,
+    on every cache-on run: 16 hits reusing 16 x 384 tokens; K5 (over
+    aliased block tables) and the journal as in ``serve_traffic``.  On
+    the first: the suffix prefill's last-position logits, read through
+    the shared blocks, against a full-prompt prefill of the same 8
+    prompts, within ``PREFIX_TOL`` of max |logit|, while two planted
+    faults (t_cached one block short; a shared block read from scratch)
+    read above it.  Greedy tokens on against off are counted, not gated:
+    in bf16 the two programs sum in different orders and a near-tie
+    argmax may flip."""
+    warm, prompts = prefix_prompts(cfg)
+    runs, tokens, check = [], {}, None
+    for mode in ("on", "off", "off", "on"):
+        eng = DecodeEngine(params, cfg, device=device,
+                           prefix_cache=mode == "on", **ENGINE)
+        out = serve_traffic(eng, prompts, 64, warm)
+        tokens.setdefault(mode, out.pop("tokens"))
+        st = out["stats"]
+        if mode == "on" and (st.get("prefix_hits") != len(prompts)
+                             or st.get("prefix_tokens_reused")
+                             != len(prompts) * PREFIX_SYSTEM):
+            raise RuntimeError(f"prefix cache: {st}")
+        runs.append(dict({k: out[k] for k in (
+            "tokens_per_s", "mean_ttft_s", "journal_mean_ttft_s",
+            "k5_launches")}, mode=mode, **{k: st[k] for k in (
+                "dispatches", "prefills", "occupancy")}))
+        if mode == "on" and check is None:
+            check = prefix_check(eng, prompts)
+        del eng
+    return dict(check, system_tokens=PREFIX_SYSTEM, logit_limit=PREFIX_TOL,
+                tokens_equal_on_off=sum(a == b for a, b in zip(
+                    tokens["on"], tokens["off"])), runs=runs)
+
+
+def prefix_check(eng, prompts) -> dict:
+    """The logit gate of ``phase_serve_prefix`` on a cache-on engine that
+    has served the traffic, and the two prefill programs' wall times."""
+    # the system prompt's 12 blocks (a prompt's own full blocks are
+    # cached too, so the probe may reach further)
+    shared, tc = eng._probe_prefix(Request(uid=-1, prompt=prompts[0],
+                                           max_new=1))
+    if tc < PREFIX_SYSTEM:
+        raise RuntimeError(f"the cache lost the system prompt: {tc} tokens")
+    tc = PREFIX_SYSTEM
+    shared = shared[:tc // eng.bs]
+    group = prompts[:eng.G]
+    full, full_ms = _prefix_logits(eng, group, None, 0)
+    cached, cached_ms = _prefix_logits(eng, group, shared, tc)
+    scale = full.abs().max().item()
+    err = {"sound": (cached - full).abs().max().item() / scale}
+    for fault in ("block", "short"):               # "short" writes last
+        bad, _ = _prefix_logits(eng, group, shared, tc, fault)
+        err[fault] = (bad - full).abs().max().item() / scale
+    if err["sound"] > PREFIX_TOL or min(err["block"],
+                                        err["short"]) <= PREFIX_TOL:
+        raise RuntimeError(f"prefix logits: {err} against the limit "
+                           f"{PREFIX_TOL}")
+    return {"logit_err": err, "group": len(group),
+            "suffix_prefill_ms": cached_ms, "full_prefill_ms": full_ms}
 
 
 # ------------------------------------------------ phase 5: K1-K4 (flash)
@@ -1605,8 +1875,15 @@ def main() -> int:
     emit({"phase": "init_470m", "seconds": time.perf_counter() - t0,
           "params": n_params})
     serve = phase_serve(params, cfg, device)
+    serve.pop("tokens")
     emit({"phase": "serve_470m", **serve})
     emit({"phase": "profile_470m", **phase_profile(params, cfg, device)})
+    emit({"phase": "serve_470m_int8w", **phase_serve_int8w(
+        params, cfg, device, serve["weight_bytes"])})
+    emit({"phase": "profile_470m_int8w", **phase_profile(
+        params, cfg, device, weights_int8=True)})
+    emit({"phase": "serve_470m_prefix",
+          **phase_serve_prefix(params, cfg, device)})
     del params
     small = G.GPTConfig(**dict(MODEL, n_layers=4), dtype=torch.bfloat16)
     params = G.init_params(torch.Generator(device=device).manual_seed(1),
@@ -1615,9 +1892,13 @@ def main() -> int:
         params, small, device, "speculative3", speculative=3)})
     emit({"phase": "variant_4l", **phase_variant(
         params, small, device, "kv_int8", kv_dtype=torch.int8)})
+    emit({"phase": "variant_4l", **phase_variant(
+        params, small, device, "int8w_kvint8_spec3", weights_int8=True,
+        kv_dtype=torch.int8, speculative=3)})
     del params
     emit({"phase": "fused_vs_gather_f32_2l",
           **phase_fused_vs_gather(device)})
+    emit({"phase": "prefix_f32_2l", **phase_prefix_f32(device)})
 
     phase_flash_check(device)
     emit({"phase": "flash_faults", **phase_flash_faults(device)})

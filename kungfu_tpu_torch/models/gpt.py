@@ -134,8 +134,12 @@ def cast_params(params: Dict, cfg: GPTConfig,
     """Move the tree to ``device`` and store the matmul weights once in
     the model dtype (the JAX functions cast them at every use; the cast
     is the same, so the numbers are too).  Embeddings, norms and the LM
-    head stay f32."""
+    head stay f32.  An int8 weight (``ops.quant.QuantizedTensor``, made
+    from the caller's f32 tree) moves as it is: casting first would
+    quantize other values."""
     def mv(t, dtype):
+        if not isinstance(t, torch.Tensor):
+            return t.to(device) if device is not None else t
         return t.to(device=device if device is not None else t.device,
                     dtype=dtype)
     out = {k: mv(v, torch.float32) for k, v in params.items()
@@ -387,8 +391,10 @@ def _decode_hidden(params, cfg: GPTConfig, cache, pos: int, token):
 
 
 def _head(params, x):
-    """lm_head on [B, 1, D] -> [B, V] f32 logits."""
-    return torch.einsum("btd,dv->btv", x.float(), params["lm_head"])[:, 0]
+    """lm_head on [B, 1, D] -> [B, V] f32 logits (a dequantized bf16
+    lm_head is widened, as the JAX einsum promotes it)."""
+    return torch.einsum("btd,dv->btv", x.float(),
+                        params["lm_head"].float())[:, 0]
 
 
 @torch.no_grad()

@@ -8,6 +8,9 @@ Prints ``SERVING ready on <host>:<port>`` once live, then blocks until
 SIGINT/SIGTERM.  Without ``--npz`` the model is seed-initialized;
 ``--npz`` reads weights written by kungfu_tpu.checkpoint.save_npz.  Runs
 on ``cuda`` (bf16) unless ``--device cpu`` (f32) is given.
+``--weights-int8 [--weights-int8-min-size N]`` stores the weights as
+int8, ``--prefix-cache`` shares prompt-prefix KV blocks, and
+``GET /requests?n=`` serves the request journal.
 """
 from __future__ import annotations
 
@@ -52,12 +55,28 @@ def main(argv=None):
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8-quantized KV cache, dequantized inside the "
                          "paged-attention kernel")
+    ap.add_argument("--weights-int8", action="store_true",
+                    help="weight-only int8 (W8A16): int8 matmul weights "
+                         "and LM head with per-channel scales, each "
+                         "layer's weights dequantized at its use; about "
+                         "half the resident weight bytes")
+    ap.add_argument("--weights-int8-min-size", type=int, default=0,
+                    help="quantize only weights with at least this many "
+                         "elements (e.g. 10000000: the vocab-sized LM head "
+                         "only; 0 = every eligible weight)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share prompt-prefix KV blocks across requests "
+                         "(refcounted; suffix-only prefill on a hit)")
     ap.add_argument("--speculative", type=int, default=0, metavar="K",
                     help="speculative decoding with up to K prompt-"
                          "lookup drafts per pass (lossless for greedy)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
+    if args.weights_int8_min_size and not args.weights_int8:
+        ap.error("--weights-int8-min-size requires --weights-int8 (it "
+                 "restricts which weights quantize, it does not enable "
+                 "quantization)")
 
     device = resolve_device(args.device)
     cfg = G.GPTConfig(vocab_size=args.vocab, d_model=args.d_model,
@@ -80,8 +99,12 @@ def main(argv=None):
                        prompt_buckets=buckets, decode_chunk=args.chunk,
                        max_len=args.max_len,
                        kv_dtype=torch.int8 if args.kv_int8 else None,
-                       speculative=args.speculative, device=device)
-    del params                      # the engine holds its own cast copy
+                       speculative=args.speculative,
+                       prefix_cache=args.prefix_cache,
+                       weights_int8=args.weights_int8,
+                       weights_int8_min_size=args.weights_int8_min_size,
+                       device=device)
+    del params                      # the engine holds its own copy
     srv = ServingServer(eng, host=args.host, port=args.port).start()
     # handlers before the readiness line: a supervisor reacting to it may
     # signal immediately, and that must reach the graceful shutdown

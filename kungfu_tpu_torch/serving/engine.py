@@ -14,14 +14,23 @@
 * **chunked decode**: ``decode_chunk`` steps run back to back with the
   sampled tokens kept on the device; the host syncs once per chunk;
 * **speculative verify** (``speculative=K``): prompt-lookup drafts, and
-  one verify pass checks the current token plus up to K drafts.
+  one verify pass checks the current token plus up to K drafts;
+* **int8 weights** (``weights_int8``, W8A16): the matmul weights are
+  stored as int8 with per-channel f32 scales (``ops/quant.py``) and each
+  layer's weights are dequantized at that layer's use, in every program;
+* **prefix cache** (``prefix_cache``): full prompt blocks are shared
+  across requests by reference count, and a hit prefills only the
+  prompt's suffix, reading the shared blocks through its block table;
+* **request journal** (``journal``, ``serving/slo.py``): each request's
+  arrival, admissions, first token, preemptions and finish, with the
+  SLO evaluation that ``GET /requests`` serves.
 
 The per-request oracle is ``models.gpt.generate``: greedy requests get
-exactly the tokens the plain decoder produces.
+exactly the tokens the plain decoder produces (under int8 weights, on
+the dequantized weights).
 
-Left for later slices of the port: tensor-parallel serving, int8
-weights, the prefix cache, and the observability hooks (request journal,
-trace events, monitor gauges, chaos points).
+Left for later slices of the port: tensor-parallel serving, and the
+trace events, monitor gauges, ``StepPhases`` and chaos points.
 """
 from __future__ import annotations
 
@@ -36,10 +45,12 @@ import torch
 
 from ..models import gpt as G
 from ..models.gpt import GPTConfig
+from ..ops.quant import dequantize_weights, quantize_weights
 from ..utils.device import resolve_device
 from .cache import (init_paged_pools, lookup_blocks, pool_attend,
                     pool_attend_queries, pool_write_at,
                     pool_write_prompt_batch, pool_write_token)
+from .slo import RequestJournal
 
 
 @dataclasses.dataclass
@@ -57,6 +68,13 @@ class Request:
     # k-th kept); top_p < 1: nucleus sampling.  Ignored when greedy.
     top_k: int = 0
     top_p: float = 1.0
+    # when the request entered the system (perf_counter clock): the
+    # front end stamps it, submit() back-fills it, and a preemption
+    # re-stamps it on requeue (the current wait)
+    arrival_t: Optional[float] = None
+    # the original arrival, never re-stamped: the journal's TTFT and
+    # e2e include every requeue
+    first_arrival_t: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -110,6 +128,8 @@ class EngineStats:
         self.preemptions = 0
         self.spec_proposed = 0       # speculative: drafted tokens sent
         self.spec_accepted = 0       # ...and verified == model argmax
+        self.prefix_hits = 0         # admissions served from the cache
+        self.prefix_tokens_reused = 0  # prompt tokens not recomputed
         self.wall_s = 0.0
 
     @property
@@ -127,6 +147,9 @@ class EngineStats:
                "wall_s": round(self.wall_s, 3),
                "tok_per_s": round(self.tokens_out / self.wall_s, 1)
                if self.wall_s else 0.0}
+        if self.prefix_hits:
+            out["prefix_hits"] = self.prefix_hits
+            out["prefix_tokens_reused"] = self.prefix_tokens_reused
         if self.spec_proposed:
             out["spec_proposed"] = self.spec_proposed
             out["spec_accepted"] = self.spec_accepted
@@ -135,8 +158,30 @@ class EngineStats:
         return out
 
 
+def _identity(tree):
+    return tree
+
+
+def _weights_at_use(cfg: GPTConfig, weights_int8: bool):
+    """``prep(tree)``: one layer's weights (or the LM head's entry) as the
+    products use them.  Under int8 weights each QuantizedTensor becomes a
+    ``cfg.dtype`` tensor here, one elementwise kernel per weight at that
+    layer's use, so no dequantized copy outlives its layer (the JAX
+    engine dequantizes inside each jitted program, where XLA fuses it
+    into the dot)."""
+    if not weights_int8:
+        return _identity
+    return lambda tree: dequantize_weights(tree, cfg.dtype)
+
+
+def _logits(params, x, prep):
+    """f32 logits from ``x`` [B, 1, D]; an int8 LM head is dequantized to
+    ``cfg.dtype`` and widened, as the JAX engine's head uses it."""
+    return G._head(prep({"lm_head": params["lm_head"]}), x)
+
+
 def _decode_core(params, cfg: GPTConfig, block_size: int, pools, tables,
-                 pos, tokens, attend_mode: str = "auto"):
+                 pos, tokens, attend_mode: str = "auto", prep=_identity):
     """One decode step for every slot: feed each its last token at its
     own position, write K/V through the block tables (inactive slots'
     zeroed rows route to scratch), attend straight off the pool, return
@@ -144,12 +189,13 @@ def _decode_core(params, cfg: GPTConfig, block_size: int, pools, tables,
     x = G.embed(params, tokens[:, None], pos[:, None], cfg)
     blk, off = lookup_blocks(tables, pos, block_size)
     for layer, pool in zip(params["layers"], pools):
+        layer = prep(layer)
         q, kk, v = G._layer_qkv(layer, x, cfg, pos=pos[:, None])
         pool_write_token(pool, blk, off, kk[:, 0], v[:, 0])
         o = pool_attend(q, pool, tables, pos, mode=attend_mode)
         x = G._layer_finish(layer, x, o, cfg)
     x = G.rms_norm(x, params["lnf"])
-    return G._head(params, x)
+    return _logits(params, x, prep)
 
 
 def _filter_logits(lg, k: int, p: float):
@@ -203,7 +249,7 @@ def _pick_tokens(logits, uid_lo, uid_hi, tcount, temp, top_k, top_p):
 
 
 def _make_decode_chunk(cfg: GPTConfig, block_size: int, chunk: int,
-                       attend_mode: str = "auto"):
+                       attend_mode: str = "auto", prep=_identity):
     """``chunk`` decode steps back to back, each feeding its sampled
     tokens to the next on the device; returns all sampled tokens
     [chunk, S] on the device, so the caller syncs once per chunk (the
@@ -218,7 +264,7 @@ def _make_decode_chunk(cfg: GPTConfig, block_size: int, chunk: int,
         tok = tokens
         for i in range(chunk):
             logits = _decode_core(params, cfg, block_size, pools, tables,
-                                  pos + i, tok, attend_mode)
+                                  pos + i, tok, attend_mode, prep)
             tok = _pick_tokens(logits, uid_lo, uid_hi, tcount + i, temp,
                                top_k, top_p)
             toks.append(tok)
@@ -228,7 +274,7 @@ def _make_decode_chunk(cfg: GPTConfig, block_size: int, chunk: int,
 
 
 def _make_verify(cfg: GPTConfig, block_size: int, K: int,
-                 attend_mode: str = "auto"):
+                 attend_mode: str = "auto", prep=_identity):
     """Speculative-decoding verify: feed every slot its current token plus
     ``K`` drafted continuations (Q = K+1 positions) in one forward and
     return the model's prediction at each position [S, Q].  Greedy
@@ -244,6 +290,7 @@ def _make_verify(cfg: GPTConfig, block_size: int, K: int,
                                            dtype=pos.dtype)[None, :]
         x = G.embed(params, draft, qpos, cfg)                # [S, Q, D]
         for layer, pool in zip(params["layers"], pools):
+            layer = prep(layer)
             q, kk, v = G._layer_qkv(layer, x, cfg, pos=qpos)
             pool_write_at(pool, tables, qpos, kk, v, block_size)
             o = pool_attend_queries(q, pool, tables, qpos,
@@ -251,8 +298,8 @@ def _make_verify(cfg: GPTConfig, block_size: int, K: int,
             x = G._layer_finish(layer, x, o, cfg)
         x = G.rms_norm(x, params["lnf"])
         S = x.shape[0]
-        logits = G._head(params, x.reshape(S * Q, 1, x.shape[-1])
-                         ).reshape(S, Q, -1)                 # [S, Q, V]
+        logits = _logits(params, x.reshape(S * Q, 1, x.shape[-1]),
+                         prep).reshape(S, Q, -1)             # [S, Q, V]
         preds = torch.argmax(logits, dim=-1).to(torch.int32)
         # position 0 honours the per-request sampling discipline (sampled
         # slots draft nothing, so only their column 0 is consumed)
@@ -278,31 +325,93 @@ def _propose_draft(history, K: int, ngram: int = 2):
     return []
 
 
-def _make_prefill(cfg: GPTConfig, block_size: int):
-    """Bucketed dense prefill for a group of requests: causal forward
-    over the right-padded prompts [n, T], K/V written into each member's
-    blocks (padding to scratch), first token from each row's hidden state
-    at its true last position."""
+def _last_logits(params, x, t_real, prep):
+    """f32 logits [n, V] from each prefill row's hidden state at its true
+    last position ``t_real - 1``."""
+    x = G.rms_norm(x, params["lnf"])
+    last = torch.clamp(t_real.long() - 1, min=0)
+    h_last = x[torch.arange(x.shape[0], device=x.device), last]
+    return _logits(params, h_last[:, None], prep)
+
+
+def _prefill_features(params, cfg: GPTConfig, block_size: int, pools,
+                      table_rows, tokens, t_real, prep=_identity):
+    """The full-prompt prefill's layers: causal forward over the
+    right-padded prompts [n, T], K/V written into each row's blocks
+    (padding to scratch); returns the last layer's output [n, T, D]."""
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x = G.embed(params, tokens, pos, cfg)                    # [n, T, D]
+    for layer, pool in zip(params["layers"], pools):
+        layer = prep(layer)
+        q, kk, v = G._layer_qkv(layer, x, cfg, pos=pos)
+        pool_write_prompt_batch(pool, table_rows, kk, v, t_real, block_size)
+        o = G._attend(q, kk, v, "dense", kv_groups=cfg.kv_groups)
+        x = G._layer_finish(layer, x, o, cfg)
+    return x
+
+
+def _prefill_cached_features(params, cfg: GPTConfig, block_size: int, pools,
+                             table_rows, tokens, t_real, t_cached,
+                             prep=_identity):
+    """The suffix prefill's layers: each row's prompt suffix (positions
+    ``t_cached .. t_cached + t_real - 1``) runs the dense forward, its
+    K/V are written to the row's own blocks at those absolute positions,
+    and the attend reads the whole cache through the block table: the
+    shared prefix blocks plus the suffix just written, one gathered pass
+    per layer.  Returns the last layer's output [n, T, D].
+
+    The attend is the gather path (``pool_attend_queries(mode=
+    "gather")``), as in the JAX engine: K5's multi-query form serves the
+    1-16 rows of a verify, not a bucket of prompt rows."""
+    rel = torch.arange(tokens.shape[1], device=tokens.device)
+    qpos = t_cached.long()[:, None] + rel[None, :]           # [n, T]
+    x = G.embed(params, tokens, qpos, cfg)
+    # pad positions (rel >= t_real) go to scratch: their qpos points into
+    # allocated blocks, where a write would corrupt live cache
+    limit = table_rows.shape[1] * block_size
+    wpos = torch.where(rel[None, :] < t_real.long()[:, None], qpos, limit)
+    for layer, pool in zip(params["layers"], pools):
+        layer = prep(layer)
+        q, kk, v = G._layer_qkv(layer, x, cfg, pos=qpos)
+        pool_write_at(pool, table_rows, wpos, kk, v, block_size)
+        o = pool_attend_queries(q, pool, table_rows, qpos, mode="gather")
+        x = G._layer_finish(layer, x, o, cfg)
+    return x
+
+
+def _make_prefill(cfg: GPTConfig, block_size: int, prep=_identity):
+    """Bucketed dense prefill for a group of requests: the layers of
+    :func:`_prefill_features`, then each row's first token (index 0 of
+    its stream) from its true last position."""
 
     @torch.no_grad()
     def prefill(params, pools, table_rows, tokens, t_real, uid_lo, uid_hi,
                 temp, top_k, top_p):
-        T = tokens.shape[1]
-        pos = torch.arange(T, device=tokens.device)
-        x = G.embed(params, tokens, pos, cfg)                # [n, T, D]
-        for layer, pool in zip(params["layers"], pools):
-            q, kk, v = G._layer_qkv(layer, x, cfg, pos=pos)
-            pool_write_prompt_batch(pool, table_rows, kk, v, t_real,
-                                    block_size)
-            o = G._attend(q, kk, v, "dense", kv_groups=cfg.kv_groups)
-            x = G._layer_finish(layer, x, o, cfg)
-        x = G.rms_norm(x, params["lnf"])
-        last = torch.clamp(t_real.long() - 1, min=0)
-        h_last = x[torch.arange(x.shape[0], device=x.device), last]
-        logits = G._head(params, h_last[:, None])            # [n, V]
-        return _pick_tokens(logits, uid_lo, uid_hi,
-                            np.zeros(len(uid_lo), np.int64), temp, top_k,
-                            top_p)
+        x = _prefill_features(params, cfg, block_size, pools, table_rows,
+                              tokens, t_real, prep)
+        return _pick_tokens(_last_logits(params, x, t_real, prep), uid_lo,
+                            uid_hi, np.zeros(len(uid_lo), np.int64), temp,
+                            top_k, top_p)
+
+    return prefill
+
+
+def _make_prefill_cached(cfg: GPTConfig, block_size: int, prep=_identity):
+    """Suffix prefill for prefix-cache hits: the layers of
+    :func:`_prefill_cached_features` (the prefix's projections, FFN and
+    attention are skipped), then each row's first token.  Model-dtype
+    pools only, so a cached prefix holds the values a recomputed one
+    would."""
+
+    @torch.no_grad()
+    def prefill(params, pools, table_rows, tokens, t_real, t_cached, uid_lo,
+                uid_hi, temp, top_k, top_p):
+        x = _prefill_cached_features(params, cfg, block_size, pools,
+                                     table_rows, tokens, t_real, t_cached,
+                                     prep)
+        return _pick_tokens(_last_logits(params, x, t_real, prep), uid_lo,
+                            uid_hi, np.zeros(len(uid_lo), np.int64), temp,
+                            top_k, top_p)
 
     return prefill
 
@@ -322,6 +431,23 @@ class DecodeEngine:
     drafts (replaces ``decode_chunk``).  ``device`` defaults to ``cuda``
     and raises without one; pass ``"cpu"`` to run on the CPU.  Matmul
     weights are stored once in ``cfg.dtype`` on the device.
+
+    ``weights_int8=True`` stores every matmul weight and the LM head as
+    int8 with per-channel scales (``ops.quant.quantize_weights`` of the
+    caller's f32 tree, before any cast), about half the resident weight
+    bytes; ``weights_int8_min_size=N`` quantizes only weights of at
+    least N elements.  Each layer's weights are dequantized at their use.
+    ``prefix_cache=True`` shares prompt-prefix KV across requests: full
+    blocks are keyed by their token prefix with reference counts; an
+    admission whose prefix is cached prefills only its suffix, reading
+    the shared blocks through its table.  Unreferenced cached blocks form
+    an LRU the allocator evicts under pressure.  A preempted request pins
+    its prefix split so its replay is numerically the same (streamed
+    tokens never roll back).  Requests admitted in one batched prefill
+    cannot share with each other (entries land after the prefill);
+    model-dtype pools only.  ``journal`` (a ``serving.slo.RequestJournal``
+    with the default SLOs and no sink; replace it before the first
+    submit to change either) records every request's lifecycle.
     """
 
     def __init__(self, params, cfg: GPTConfig, *, num_slots: int = 8,
@@ -330,14 +456,27 @@ class DecodeEngine:
                  prompt_buckets=(32, 128, 512), decode_chunk: int = 8,
                  prefill_group: Optional[int] = None, on_tokens=None,
                  attend: str = "auto", kv_dtype=None, speculative: int = 0,
-                 device=None):
+                 prefix_cache: bool = False, weights_int8: bool = False,
+                 weights_int8_min_size: int = 0, device=None):
         if attend not in ("auto", "fused", "gather"):
             raise ValueError(f"attend must be auto|fused|gather, "
                              f"got {attend!r}")
         if kv_dtype is not None and kv_dtype != torch.int8:
             raise ValueError("kv_dtype must be None (model dtype) or "
                              "torch.int8")
+        if prefix_cache and kv_dtype is not None:
+            raise ValueError(
+                "prefix_cache requires the model-dtype pool: the int8 "
+                "cache would substitute dequantized prefix values where "
+                "an uncached prefill attends fresh ones")
         self.device = resolve_device(device)
+        self.weights_int8 = bool(weights_int8)
+        if self.weights_int8:
+            # quantize the caller's tree as it is: cast_params would
+            # round the matmul weights to cfg.dtype first, and that
+            # quantizes to other q and scale values than the JAX engine's
+            params = quantize_weights(params, min_size=weights_int8_min_size)
+        prep = _weights_at_use(cfg, self.weights_int8)
         self.params = G.cast_params(params, cfg, self.device)
         self.cfg = cfg
         self.S = num_slots
@@ -354,6 +493,29 @@ class DecodeEngine:
                                       kv_dtype=kv_dtype, device=self.device)
         self._total_blocks = num_blocks - 1      # block 0 is scratch
         self._free = collections.deque(range(1, num_blocks))
+        # ---- prefix cache: refcounted shared prompt blocks ----
+        # a block is in exactly one place: _free (uncached, ref 0),
+        # _reclaim (cached, ref 0: the evictable LRU), or held by >= 1
+        # running slots (ref > 0, cached or not).  Entries key on the
+        # full token prefix through that block, so identical prompt
+        # prefixes land on the same physical blocks.
+        self.prefix_cache = bool(prefix_cache)
+        self._block_ref = np.zeros(num_blocks, np.int32)
+        self._block_key: Dict[int, bytes] = {}
+        self._prefix_index: Dict[bytes, int] = {}
+        self._reclaim: "collections.OrderedDict[bytes, int]" = \
+            collections.OrderedDict()
+        # per-uid admission split (prompt tokens served from the cache),
+        # and the prefix blocks a preempted uid keeps referenced so its
+        # replay re-admits with the same split and values
+        self._admit_split: Dict[int, int] = {}
+        self._pinned: Dict[int, List[int]] = {}
+        # uids whose pins had to be dropped (an all-prefix victim under
+        # extreme pressure): their replay runs at t_cached = 0, so the
+        # split is at least deterministic; in bf16 the re-prefilled
+        # stream can still differ from the cached-split original on a
+        # near-tie argmax (needs prefix_cache + streaming + a pin drop)
+        self._force_fresh: set = set()
         self._tables = np.zeros((num_slots, self.max_blocks), np.int32)
         self._pos = np.zeros(num_slots, np.int32)
         self._tok = np.zeros(num_slots, np.int32)
@@ -376,12 +538,17 @@ class DecodeEngine:
         self.G = max(1, min(prefill_group or min(num_slots, 8), num_slots))
         self.spec = max(0, int(speculative))
         if self.spec:
-            self._verify = _make_verify(cfg, block_size, self.spec, attend)
+            self._verify = _make_verify(cfg, block_size, self.spec, attend,
+                                        prep)
         else:
             self._decode = _make_decode_chunk(cfg, block_size, self.K,
-                                              attend)
-        self._prefill = _make_prefill(cfg, block_size)
+                                              attend, prep)
+        self._prefill = _make_prefill(cfg, block_size, prep)
+        if self.prefix_cache:
+            self._prefill_cached = _make_prefill_cached(cfg, block_size,
+                                                        prep)
         self.stats = EngineStats(num_slots)
+        self.journal = RequestJournal()
 
     def _dev(self, a: np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -421,6 +588,12 @@ class DecodeEngine:
         if req.uid in in_flight:
             raise ValueError(f"request uid {req.uid} already in flight "
                              f"(uids key both results and sampling)")
+        if req.arrival_t is None:
+            req.arrival_t = time.perf_counter()
+        if req.first_arrival_t is None:
+            req.first_arrival_t = req.arrival_t
+        self.journal.on_submit(req.uid, req.first_arrival_t,
+                               len(req.prompt))
         self._queue.append(req)
 
     def _bucket(self, n: int) -> int:
@@ -429,14 +602,109 @@ class DecodeEngine:
                 return b
         raise AssertionError  # submit() validated
 
-    def _alloc(self, n: int) -> Optional[List[int]]:
-        if len(self._free) < n:
-            return None
-        return [self._free.popleft() for _ in range(n)]
+    def _available(self) -> int:
+        return len(self._free) + len(self._reclaim)
 
-    def _free_slot(self, slot: int) -> None:
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        if self._available() < n:
+            return None
+        while len(self._free) < n:
+            # evict the least recently freed cached block (its cache
+            # entry dies; the block itself is reused)
+            key, blk = self._reclaim.popitem(last=False)
+            self._prefix_index.pop(key, None)
+            self._block_key.pop(blk, None)
+            self._free.append(blk)
+        out = [self._free.popleft() for _ in range(n)]
+        for b in out:
+            self._block_ref[b] = 1
+        return out
+
+    def _acquire_shared(self, blk: int) -> None:
+        """Take a reference on a cached block (reviving it from the
+        reclaim list if no running slot holds it)."""
+        if self._block_ref[blk] == 0:
+            key = self._block_key.get(blk)
+            if key is not None:
+                self._reclaim.pop(key, None)
+        self._block_ref[blk] += 1
+
+    def _release_block(self, blk: int) -> None:
+        self._block_ref[blk] -= 1
+        if self._block_ref[blk] < 0:
+            raise AssertionError(f"block {blk} released more often than "
+                                 f"it was taken")
+        if self._block_ref[blk] == 0:
+            key = self._block_key.get(blk)
+            if key is not None:
+                self._reclaim[key] = blk     # cached: evictable, LRU
+                self._reclaim.move_to_end(key)
+            else:
+                self._free.append(blk)
+
+    @staticmethod
+    def _chain_keys(prompt, bs, n_blocks):
+        """Chained blake2b digests of the prompt's full blocks: key j
+        commits to every token through block j at O(bs) per block.
+        16-byte digests (a collision would serve wrong KV, hence a real
+        hash); the same seed and bytes as the JAX engine, so the same
+        prompts give the same keys."""
+        key = b"kft-prefix"
+        for j in range(n_blocks):
+            h = hashlib.blake2b(key, digest_size=16)
+            h.update(np.asarray(prompt[j * bs:(j + 1) * bs],
+                                np.int64).tobytes())
+            key = h.digest()
+            yield key
+
+    def _probe_prefix(self, req: Request):
+        """(shared_blocks, t_cached) for this request under the cache.
+
+        A replayed (preempted) uid reuses its pinned split as it was, the
+        same physical prefix blocks and t_cached, so its re-prefill is
+        numerically the same as the original and the tokens already
+        streamed stay valid.  A fresh request probes the longest
+        contiguous run of cached full blocks, capped one token short of
+        the prompt (the prefill needs a query position for the first
+        token)."""
+        if not self.prefix_cache or req.uid in self._force_fresh:
+            return [], 0
+        if req.uid in self._pinned:
+            return (self._pinned[req.uid],
+                    self._admit_split.get(req.uid, 0))
+        p = req.prompt
+        shared = []
+        n_full = (len(p) - 1) // self.bs      # >= 1 suffix token
+        for key in self._chain_keys(p, self.bs, n_full):
+            blk = self._prefix_index.get(key)
+            if blk is None:
+                break
+            shared.append(blk)
+        return shared, len(shared) * self.bs
+
+    def _cache_insert(self, req: Request, blocks: List[int]) -> None:
+        """Register this prompt's full blocks in the prefix index (the
+        first sharer's physical blocks win; later identical prompts keep
+        their own copies uncached)."""
+        if not self.prefix_cache:
+            return
+        p = req.prompt
+        for j, key in enumerate(self._chain_keys(p, self.bs,
+                                                 len(p) // self.bs)):
+            if key in self._prefix_index:
+                continue
+            blk = blocks[j]
+            if blk in self._block_key:     # already caches another key
+                continue
+            self._prefix_index[key] = blk
+            self._block_key[blk] = key
+
+    def _free_slot(self, slot: int, keep: int = 0) -> None:
+        """Release the slot's blocks except its first ``keep`` (a
+        preempted request's pinned prefix)."""
         run = self._running[slot]
-        self._free.extend(run.blocks)
+        for b in run.blocks[keep:]:
+            self._release_block(b)
         self._running[slot] = None
         self._tables[slot] = 0
         self._pos[slot] = 0
@@ -450,9 +718,11 @@ class DecodeEngine:
         self._admit_order.remove(slot)
 
     def _admit(self) -> None:
-        """Admit the longest FCFS run of the queue that shares one prompt
+        """Admit the longest FCFS run of the queue that shares one prefill
         bucket and fits (free slot + blocks + growth headroom), up to
-        ``prefill_group`` requests, and prefill them in one pass.
+        ``prefill_group`` requests, and prefill them in one pass.  Under
+        the prefix cache the bucket is that of the suffix still to
+        compute.
 
         Admission hysteresis: while anything is running, wait until
         ``min(prefill_group, queue, S-1)`` slots are free, so freed slots
@@ -466,30 +736,44 @@ class DecodeEngine:
             # the head's bucket sets the batch shape; later queue entries
             # of the same bucket may join it (the head is always admitted
             # first, so nothing starves)
-            bucket = self._bucket(len(self._queue[0].prompt))
-            batch = []                      # (req, slot, blocks)
+            head_probe = self._probe_prefix(self._queue[0])
+            bucket = self._bucket(len(self._queue[0].prompt)
+                                  - head_probe[1])
+            batch = []                      # (req, slot, blocks, t_cached)
             picked = []                     # queue indices admitted
             for qi, req in enumerate(self._queue):
                 if len(batch) >= self.G:
                     break
-                if self._bucket(len(req.prompt)) != bucket:
+                shared, t_cached = (head_probe if qi == 0
+                                    else self._probe_prefix(req))
+                if self._bucket(len(req.prompt) - t_cached) != bucket:
                     continue
-                taken = {s for _, s, _ in batch}
+                taken = {s for _, s, *_ in batch}
                 slot = next((i for i in range(self.S)
                              if self._running[i] is None
                              and i not in taken), None)
                 if slot is None:
                     break
-                need = -(-len(req.prompt) // self.bs)
+                need = -(-len(req.prompt) // self.bs) - len(shared)
                 # +1 growth headroom: admitting with exactly the prompt's
                 # blocks free would preempt within block_size steps
-                if len(self._free) < need + 1 and (self._admit_order
-                                                   or batch):
+                if self._available() < need + 1 and (self._admit_order
+                                                     or batch):
                     break
+                pinned = req.uid in self._pinned
+                if not pinned:
+                    # take references before _alloc: an eviction inside
+                    # it must not reclaim a block this request will read
+                    for b in shared:
+                        self._acquire_shared(b)
                 own = self._alloc(need)
                 if own is None:
+                    if not pinned:
+                        for b in shared:
+                            self._release_block(b)
                     break
-                batch.append((req, slot, own))
+                self._pinned.pop(req.uid, None)
+                batch.append((req, slot, shared + own, t_cached))
                 picked.append(qi)
             if not batch:
                 return
@@ -499,26 +783,53 @@ class DecodeEngine:
             toks = np.zeros((n, bucket), np.int32)
             rows = np.zeros((n, self.max_blocks), np.int32)
             t_reals = np.zeros(n, np.int32)
+            t_cacheds = np.zeros(n, np.int32)
             uid_lo = np.zeros(n, np.uint32)
             uid_hi = np.zeros(n, np.uint32)
             temps = np.zeros(n, np.float32)
             topks = np.zeros(n, np.int32)
             topps = np.ones(n, np.float32)
-            for g, (req, slot, blocks) in enumerate(batch):
-                toks[g, :len(req.prompt)] = req.prompt
+            for g, (req, slot, blocks, t_cached) in enumerate(batch):
+                suffix = req.prompt[t_cached:]
+                toks[g, :len(suffix)] = suffix
                 rows[g, :len(blocks)] = blocks
-                t_reals[g] = len(req.prompt)
+                t_reals[g] = len(suffix)
+                t_cacheds[g] = t_cached
                 uid_lo[g] = req.uid & 0xFFFFFFFF
                 uid_hi[g] = (req.uid >> 32) & 0xFFFFFFFF
                 temps[g] = req.temperature
                 topks[g] = req.top_k
                 topps[g] = req.top_p
-            tok0s = self._prefill(
-                self.params, self.pools, self._dev(rows), self._dev(toks),
-                self._dev(t_reals), uid_lo, uid_hi, temps, topks, topps)
+            if t_cacheds.any():
+                # at least one cached prefix: the suffix program (reads
+                # the shared blocks through the tables)
+                tok0s = self._prefill_cached(
+                    self.params, self.pools, self._dev(rows),
+                    self._dev(toks), self._dev(t_reals),
+                    self._dev(t_cacheds), uid_lo, uid_hi, temps, topks,
+                    topps)
+                self.stats.prefix_hits += int((t_cacheds > 0).sum())
+                self.stats.prefix_tokens_reused += int(t_cacheds.sum())
+            else:
+                # all-fresh batch: the original full-prompt program (the
+                # same numbers as the cache-off engine)
+                tok0s = self._prefill(
+                    self.params, self.pools, self._dev(rows),
+                    self._dev(toks), self._dev(t_reals), uid_lo, uid_hi,
+                    temps, topks, topps)
             tok0s = tok0s.cpu().numpy()
             self.stats.prefills += 1
-            for g, (req, slot, blocks) in enumerate(batch):
+            now = time.perf_counter()
+            for req, slot, _, t_cached in batch:
+                wait = now - req.arrival_t
+                self.journal.on_admit(req.uid, now, slot=slot,
+                                      prefix_reused=t_cached, wait_s=wait)
+                # tok0 came out of this prefill; set once, so a replay's
+                # re-prefill does not move it
+                self.journal.on_first_token(req.uid, now)
+            for g, (req, slot, blocks, t_cached) in enumerate(batch):
+                self._admit_split[req.uid] = t_cached
+                self._cache_insert(req, blocks)
                 run = _Running(req=req, slot=slot, blocks=blocks, out=[])
                 self._tables[slot] = 0
                 self._tables[slot, :len(blocks)] = blocks
@@ -556,8 +867,12 @@ class DecodeEngine:
     def _harvest(self, slot: int) -> None:
         run = self._running[slot]
         self._emit(run)
+        self.journal.on_finish(run.req.uid, time.perf_counter(),
+                               output_tokens=len(run.out))
         self._emitted.pop(run.req.uid, None)
         self._results[run.req.uid] = run.out
+        self._admit_split.pop(run.req.uid, None)
+        self._force_fresh.discard(run.req.uid)
         self._free_slot(slot)
 
     def _preempt_for(self, needy_slot: int) -> bool:
@@ -572,11 +887,33 @@ class DecodeEngine:
         if victim is None:
             return False
         run = self._running[victim]
+        # requeued: the current-wait clock restarts; first_arrival_t, and
+        # the journal's arrival with it, stay
+        run.req.arrival_t = time.perf_counter()
+        self.journal.on_preempt(run.req.uid)
         self._queue.appendleft(run.req)
         # its generated-so-far tokens are regenerated on replay: don't
         # count them twice
         self.stats.tokens_out -= len(run.out)
-        self._free_slot(victim)
+        uid = run.req.uid
+        # under the prefix cache, keep references on the prefix blocks
+        # the replay's split needs: a replay must re-admit at the same
+        # t_cached on the same blocks to regenerate the same tokens
+        pin = (self._admit_split.get(uid, 0) // self.bs
+               if self.prefix_cache else 0)
+        kept = run.blocks[:pin]
+        before = self._available()
+        self._free_slot(victim, keep=pin)
+        if kept and self._available() == before:
+            # pinning freed nothing (the victim was all prefix): progress
+            # beats the pin; drop it and the split record (the replay
+            # prefills from scratch)
+            for b in kept:
+                self._release_block(b)
+            self._admit_split.pop(uid, None)
+            self._force_fresh.add(uid)
+        elif kept:
+            self._pinned[uid] = kept
         self.stats.preemptions += 1
         return True
 

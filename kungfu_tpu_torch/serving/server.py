@@ -11,6 +11,8 @@ the same decode batch, and callers block only on their own completion.
     #                  "temperature": 0.8, "eos": 50256, "stream": false}
     #   -> {"uid": N, "tokens": [...]}  (ndjson chunks when streaming)
     # GET  /stats -> engine stats + queue depth
+    # GET  /requests?n=64 -> the request journal: open and recently
+    #                        finished lifecycles + the SLO evaluation
     srv.close()
 
 The engine is single-threaded by construction (device state, block
@@ -27,6 +29,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler
 from typing import Dict, List, Optional
+from urllib.parse import parse_qs, urlsplit
 
 from ..utils.http import BackgroundHTTPServer
 from .engine import DecodeEngine, Request
@@ -89,6 +92,14 @@ class ServingServer:
                              pending=depth,
                              busy=server.engine.busy)
                     self._reply(200, s)
+                elif self.path.startswith("/requests"):
+                    # ?n= caps the finished tail (a bad value falls back)
+                    qs = parse_qs(urlsplit(self.path).query)
+                    try:
+                        n = int(qs.get("n", ["64"])[0])
+                    except ValueError:
+                        n = 64
+                    self._reply(200, server.engine.journal.snapshot(n))
                 else:
                     self._reply(404, {"error": "unknown path"})
 
@@ -188,7 +199,8 @@ class ServingServer:
             uid = self._next_uid
             self._next_uid += 1
             req = Request(uid=uid, prompt=prompt, max_new=max_new,
-                          eos=eos, temperature=temperature)
+                          eos=eos, temperature=temperature,
+                          arrival_t=time.perf_counter())
             # validate now so the caller gets a 422, not a wedged wait
             self.engine.validate_shape(req)
             self._pending.append(req)
@@ -257,3 +269,6 @@ class ServingServer:
         if self._sched:
             self._sched.join(timeout=30)   # releases waiters on exit
         self._http.stop()
+        # requests still in flight never finish: close their journal
+        # records as evicted, so the ring ends with no dangling lifecycle
+        self.engine.journal.evict_open("server-closed")
