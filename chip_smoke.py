@@ -26,8 +26,10 @@
    profiles it; serves 16 requests sharing a 384-token system prompt with
    the prefix cache on and off (16 hits; K5 over aliased block tables;
    the suffix prefill's logits against a full prefill, two planted faults
-   above the limit); then a speculative (K=3), an int8-KV and an int8
-   weights + int8-KV + speculative engine at 4 layers;
+   above the limit; for each request whose greedy tokens differ with
+   the cache on and off, the first index and the f32 logit margin
+   there); then a speculative (K=3), an int8-KV and an int8 weights +
+   int8-KV + speculative engine at 4 layers;
 4. checks that greedy tokens of an f32 full-width engine are the same
    with the fused kernel and with the gather path, and, at 2 layers, with
    the prefix cache on and off under a roomy pool, LRU eviction and
@@ -71,7 +73,19 @@
    order, the H2D rate) and checks a step fed from it; and runs one
    forward and backward of BERT-base in bf16 against f32.  No hand
    kernel lies on this path (cuDNN convolutions, PyTorch ops), so the
-   kernels record is that of phases 2-8.
+   kernels record is that of phases 2-8;
+11. runs the optimizer family (SMA, the noise-scale and variance
+   monitors, adaptive SGD, pair averaging; no hand kernel either): on
+   bert_tiny at 3 gloo ranks on the card against 3 on the CPU, with a
+   reversed exchange and a dropped SMA pull planted in the workers
+   (``optimizers_card_vs_cpu``); on BERT-base at full width in a world
+   of one, each wrapper's step and ``optimizer.step()`` beside
+   synchronous SGD's (``optimizers_bert_base_w1``); on BERT-base at 2
+   ranks sharing the card over gloo, with the monitors' agreement and
+   the replicas' spread gated (``optimizers_bert_base_2r``); and the
+   README's convergence run, 8 ranks x 200 steps of
+   ``kungfu_tpu_torch.examples.convergence_bert``, to its target
+   (``convergence_bert``).
 
 Each phase prints a JSON line.  The last two lines are the kernels record
 and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; so
@@ -79,6 +93,7 @@ does a machine without a CUDA device.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -101,6 +116,7 @@ from kungfu_tpu_torch.benchmarks import resnet as BR
 from kungfu_tpu_torch.benchmarks import roofline as RL
 from kungfu_tpu_torch.benchmarks.timing import Timer
 from kungfu_tpu_torch.comm.mesh import flat_mesh
+from kungfu_tpu_torch.examples.ranks import launch
 from kungfu_tpu_torch.models import gpt as G
 from kungfu_tpu_torch.ops import _build
 from kungfu_tpu_torch.ops import flash_attention as FA
@@ -126,7 +142,14 @@ ENGINE = dict(num_slots=8, block_size=32, num_blocks=512, max_len=1024,
               prompt_buckets=(32, 128, 512), decode_chunk=8)
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print ``obj`` as a JSON line; a phase's line also carries the
+    seconds since the script started (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -758,7 +781,41 @@ def phase_serve_prefix(params, cfg, device) -> dict:
         del eng
     return dict(check, system_tokens=PREFIX_SYSTEM, logit_limit=PREFIX_TOL,
                 tokens_equal_on_off=sum(a == b for a, b in zip(
-                    tokens["on"], tokens["off"])), runs=runs)
+                    tokens["on"], tokens["off"])), runs=runs,
+                near_ties=prefix_near_ties(params, cfg, device, prompts,
+                                           tokens["on"], tokens["off"]))
+
+
+def prefix_near_ties(params, cfg, device, prompts, on, off) -> list:
+    """For each request whose greedy tokens differ with the cache on and
+    off: the first index where they differ and the f32 logit margin
+    there, from a full prefill (cache off) of the prompt and the tokens
+    both runs agree on: ``margin`` = logit[off's token] - logit[on's
+    token], ``top2`` = the gap between the two largest logits, and both
+    over max |logit|, to set beside bf16's rounding (2^-8 = 0.0039).
+    Recorded, not gated."""
+    eng = DecodeEngine(params, cfg, device=device,
+                       **dict(ENGINE, prompt_buckets=(32, 128, 512, 1024)))
+    out = []
+    for uid, (a, b) in enumerate(zip(on, off)):
+        if a == b:
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        if i >= min(len(a), len(b)):
+            out.append({"uid": uid, "index": i, "lengths": [len(a), len(b)]})
+            continue
+        logits, _ = _prefix_logits(eng, [prompts[uid] + a[:i]], None, 0)
+        row = logits[0].float()
+        top = row.topk(2).values
+        scale = row.abs().max().item()
+        margin = (row[b[i]] - row[a[i]]).item()
+        out.append({"uid": uid, "index": i, "token_on": a[i],
+                    "token_off": b[i], "margin": margin,
+                    "top2": (top[0] - top[1]).item(), "max_abs_logit": scale,
+                    "margin_rel": abs(margin) / scale})
+    del eng
+    return out
 
 
 def prefix_check(eng, prompts) -> dict:
@@ -1822,6 +1879,478 @@ def phase_bert_base(device) -> dict:
             "fwd_bwd_wall_ms": {"f32": b["ms"], "bf16": a["ms"]}}
 
 
+# ------------------------------------------ phase 11: the optimizer family
+# card against CPU, bert_tiny f32 (TF32 off), 3 gloo ranks, 5 steps:
+# losses (relative), the monitors' statistic (relative to its largest
+# value: S_est amplifies the norms' rounding) and the parameters, as
+# |card - cpu| / |cpu - init| in L2 over every parameter of a rank.  Under
+# SGD the parameters follow the gradients' rounding (~1e-6); under Adam an
+# element whose gradient is within rounding of 0 (the key biases: a
+# constant shift of a query's scores) steps by +-lr on that rounding, so
+# the Adam chain has its own limit: between its sound reading (2.5e-3)
+# and the faults planted in it (the dropped pull, and GNS feeding Adam
+# the mean gradient where SMA needs the local one), each read in this
+# phase
+OPT_TOL = {"loss": 1e-4, "stat": 1e-3, "params": 1e-3, "params_adam": 1e-2}
+OPT_STEPS = 5
+OPT_LR = {"sgd": 0.1, "adam": 1e-3, "adam_base": 1e-4}
+MLM_MASK_ID = 0
+
+
+def _opt_chain(name: str, leaves, world: int, lr: dict, group=None):
+    """The optimizer of run ``name`` over ``leaves``; GNS's batch_size is
+    8 rows a rank."""
+    from kungfu_tpu_torch import optimizers as O
+
+    def sgd():
+        return torch.optim.SGD(leaves, lr=lr["sgd"])
+
+    def adam():
+        return torch.optim.Adam(leaves, lr=lr["adam"], betas=(0.9, 0.999),
+                                eps=1e-8)
+
+    return {
+        "sync_sgd": lambda: O.synchronous_sgd(adam(), group, fusion=True),
+        "sma_gns_local_adam": lambda: O.synchronous_averaging(
+            O.gradient_noise_scale(adam(), 8, group, apply="local"), 0.1,
+            group),
+        "sma_gns_local": lambda: O.synchronous_averaging(
+            O.gradient_noise_scale(sgd(), 8, group, apply="local"), 0.1,
+            group),
+        "gns_mean": lambda: O.gradient_noise_scale(sgd(), 8, group),
+        "gns_mean_adam": lambda: O.gradient_noise_scale(adam(), 8, group),
+        "variance": lambda: O.gradient_variance(sgd(), group),
+        "variance_adam": lambda: O.gradient_variance(adam(), group),
+        "adaptive": lambda: O.adaptive_sgd(sgd(), 2, group=group),
+        "adaptive_adam": lambda: O.adaptive_sgd(adam(), 2, group=group),
+        "pair": lambda: O.pair_averaging(sgd(), world, group),
+        "pair_adam": lambda: O.pair_averaging(adam(), world, group),
+    }[name]()
+
+
+def _params_limit(name: str) -> float:
+    return OPT_TOL["params_adam" if name.endswith("adam") else "params"]
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """A fault planted in this process for the duration of the block:
+    ``"reversed"``, the exchange sends to rank - shift; ``"no_pull"``,
+    SMA's pull is zero; ``"apply_mean"``, a noise-scale monitor built in
+    the block feeds its base the mean gradient whatever its ``apply``."""
+    from kungfu_tpu_torch import optimizers as O
+    from kungfu_tpu_torch.comm import collectives as C
+    from kungfu_tpu_torch.optimizers import sma
+    ring, pull, gns = C.ring_exchange, sma.pull_toward, O.gradient_noise_scale
+    if fault == "reversed":
+        C.ring_exchange = lambda x, g, s, n: ring(x, g, -s, n)
+    elif fault == "no_pull":
+        sma.pull_toward = lambda params, target, coef: [
+            torch.zeros_like(t) for t in target]
+    elif fault == "apply_mean":
+        O.gradient_noise_scale = lambda *a, **k: gns(
+            *a, **dict(k, apply="mean"))
+    try:
+        yield
+    finally:
+        C.ring_exchange, sma.pull_toward = ring, pull
+        O.gradient_noise_scale = gns
+
+
+def _flat_params(params) -> torch.Tensor:
+    return torch.cat([t.detach().float().reshape(-1).cpu()
+                      for t in tree_leaves(params)])
+
+
+def _spawn(argvs, timeout: float, logs: str) -> None:
+    """Run one process per argv (each in a session of its own) from this
+    file's directory, output to ``logs``/<i>.log; a process that fails or
+    outlives ``timeout`` fails the phase; every process group is killed
+    on the way out."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    i, code = launch(argvs, dict(os.environ, PYTHONPATH=here), here,
+                     timeout, logs, sessions=True)
+    if i is not None:
+        with open(os.path.join(logs, f"{i}.log")) as f:
+            tail = f.read()[-3000:]
+        raise RuntimeError(f"process {i} of {len(argvs)}: "
+                           f"{'timeout' if code is None else f'exit {code}'}"
+                           f"\n{tail}")
+
+
+def _worker_argv(fn: str, rank: int, world: int, tmp: str) -> list:
+    return [sys.executable, "-c", f"import chip_smoke as S; "
+            f"S.{fn}({rank}, {world}, {tmp!r})"]
+
+
+def _join(rank: int, world: int, tmp: str, threads: int = 2):
+    """A worker rank: the card (TF32 off), a gloo group through the
+    FileStore in ``tmp``."""
+    from kungfu_tpu_torch.comm.mesh import init_process_group_file
+    device = resolve_device("cuda")
+    torch.set_num_threads(threads)
+    init_process_group_file(os.path.join(tmp, "store"), rank, world, "gloo")
+    return device
+
+
+CARD_VS_CPU = {  # run -> the statistic it reads
+    "sma_gns_local_adam": "noise_scale", "sma_gns_local": "noise_scale",
+    "gns_mean": "noise_scale", "variance": "variance", "adaptive": None,
+    "pair": None}
+CARD_VS_CPU_FAULTS = (("pair", "reversed"), ("sma_gns_local", "no_pull"),
+                      ("sma_gns_local_adam", "no_pull"),
+                      ("sma_gns_local_adam", "apply_mean"))
+
+
+def opt_card_vs_cpu_worker(rank: int, world: int, tmp: str) -> None:
+    """One rank of ``optimizers_card_vs_cpu``: every run on the card and
+    on the CPU from the same weights and batches, the planted faults on
+    the card."""
+    import torch.distributed as dist
+    from kungfu_tpu_torch.examples import convergence_bert as CB
+    from kungfu_tpu_torch.examples.bert_sma_gns import mlm_loss_fn
+    from kungfu_tpu_torch.models.bert import bert_tiny
+    from kungfu_tpu_torch.training import build_train_step
+    _join(rank, world, tmp)
+    base = bert_tiny(vocab_size=CB.VOCAB, max_len=CB.SEQ,
+                     dtype=torch.float32).init(0)
+    init = _flat_params(dict(base.named_parameters()))
+    bank, rng = CB.template_bank(), np.random.RandomState(0)
+    batches = [CB.sample_batch(bank, rng, 8 * world)
+               for _ in range(OPT_STEPS)]
+    res = {"init": init}
+    runs = [(n, d, None) for n in CARD_VS_CPU for d in ("cuda", "cpu")]
+    runs += [(n, "cuda", f) for n, f in CARD_VS_CPU_FAULTS]
+    for name, dev, fault in runs:
+        model = copy.deepcopy(base).to(dev)
+        params = dict(model.named_parameters())
+        losses, stats = [], []
+        with planted(fault):
+            opt = _opt_chain(name, tree_leaves(params), world, OPT_LR)
+            step = build_train_step(mlm_loss_fn(model), opt, params)
+            for b in batches:
+                losses.append(step(tuple(torch.from_numpy(a).to(dev)
+                                         for a in b)))
+                if CARD_VS_CPU[name]:
+                    stats.append(getattr(opt, CARD_VS_CPU[name]))
+        key = f"{name}/{dev}" + (f"/{fault}" if fault else "")
+        res[key] = {"loss": torch.stack(losses).cpu(),
+                    "stat": torch.stack(stats).cpu() if stats else None,
+                    "params": _flat_params(params)}
+    torch.save(res, os.path.join(tmp, f"r{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _card_vs_cpu_errs(res: list, name: str, key: str) -> dict:
+    """The three measures of run ``key`` (on the card) against ``name``
+    on the CPU, the worst over the ranks."""
+    out = {"loss": 0.0, "stat": 0.0, "params": 0.0}
+    for r in res:
+        got, want = r[key], r[f"{name}/cpu"]
+        out["loss"] = max(out["loss"], float(
+            ((got["loss"] - want["loss"]).abs() / want["loss"].abs()).max()))
+        if want["stat"] is not None:
+            out["stat"] = max(out["stat"], float(
+                (got["stat"] - want["stat"]).abs().max()
+                / want["stat"].abs().max()))
+        out["params"] = max(out["params"], float(
+            (got["params"] - want["params"]).norm()
+            / (want["params"] - r["init"]).norm()))
+    return out
+
+
+def phase_optimizers_card_vs_cpu(device) -> dict:
+    """The optimizer family on the card against the CPU: bert_tiny (vocab
+    512, seq 64, f32) at 3 gloo ranks sharing the card and at 3 on the
+    CPU (the same processes, the same seeded weights and batches of
+    ``convergence_bert``, 8 rows a rank), 5 steps of SMA(GNS local) over
+    Adam (the examples' chain) and over SGD, GNS mean, the variance,
+    adaptive SGD (switch at step 2) and pair averaging.  Gates: every
+    run within ``OPT_TOL``; the faults planted in the workers (the
+    reversed exchange in pair averaging, SMA's dropped pull in both SMA
+    chains, GNS's mean gradient in the Adam chain) above its chain's
+    parameter limit."""
+    world = 3
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _spawn([_worker_argv("opt_card_vs_cpu_worker", r, world, tmp)
+                for r in range(world)], 600, tmp)
+        res = [torch.load(os.path.join(tmp, f"r{r}.pt"))
+               for r in range(world)]
+    errs, bad = {}, {}
+    for name in CARD_VS_CPU:
+        e = errs[name] = _card_vs_cpu_errs(res, name, f"{name}/cuda")
+        lim = dict(OPT_TOL, params=_params_limit(name))
+        over = {k: v for k, v in e.items()
+                if not (math.isfinite(v) and v <= lim[k])}
+        if over:
+            bad[name] = over
+    faults = {f"{name}/{fault}": _card_vs_cpu_errs(
+        res, name, f"{name}/cuda/{fault}")["params"]
+        for name, fault in CARD_VS_CPU_FAULTS}
+    missed = {k: v for k, v in faults.items()
+              if not v > _params_limit(k.split("/")[0])}
+    if bad or missed:
+        raise RuntimeError(f"card vs CPU over the limits {OPT_TOL}: {bad}; "
+                           f"planted faults read at or below their "
+                           f"chain's parameter limit: {missed}")
+    return {"ranks": world, "steps": OPT_STEPS, "errs": errs,
+            "faults_params_err": faults, "limits": OPT_TOL,
+            "seconds": time.perf_counter() - t0}
+
+
+BERT_OPT_W1 = ("sync_sgd", "sma_gns_local_adam", "gns_mean_adam",
+               "variance_adam", "adaptive_adam", "pair_adam")
+BERT_OPT_2R = ("sma_gns_local_adam", "variance_adam", "adaptive",
+               "pair_adam")
+
+
+def _bert_base_mlm(device, seed: int, batch: int, n: int):
+    """BERT-base (f32 masters, bf16 compute) and ``n`` seeded MLM batches
+    of ``batch`` x 512 tokens, 15% masked."""
+    from kungfu_tpu_torch.models.bert import bert_base
+    model = bert_base(dtype=torch.bfloat16).to(device).init(0)
+    rng = np.random.RandomState(seed)
+    batches = []
+    for _ in range(n):
+        tokens = rng.randint(1, 30522, (batch, BERT_SEQ))
+        is_masked = rng.rand(*tokens.shape) < 0.15
+        masked = np.where(is_masked, MLM_MASK_ID, tokens)
+        batches.append(tuple(torch.from_numpy(a).to(device) for a in (
+            tokens.astype(np.int32), masked.astype(np.int32),
+            is_masked.astype(np.float32))))
+    return model, batches
+
+
+def phase_optimizers_bert_base_w1(device) -> dict:
+    """The optimizer layer's own cost above synchronous SGD at full width:
+    BERT-base (30522 vocab, 12 x 768, untied head) in a world of one
+    (NCCL), MLM on 8 x 512 tokens, bf16 compute over f32 masters through
+    ``build_train_step``; for sync SGD (fused all-reduce) and each
+    wrapper, all over Adam: 1 warm-up and 5 timed steps (host clock,
+    synchronised), one step under torch.profiler and one
+    ``optimizer.step()`` alone under torch.profiler (launches, host wall,
+    device time)."""
+    from kungfu_tpu_torch.examples.bert_sma_gns import mlm_loss_fn
+    from kungfu_tpu_torch.training import build_train_step
+    torch.cuda.empty_cache()
+    model, batches = _bert_base_mlm(device, 5, BERT_BATCH, 7)
+    params = dict(model.named_parameters())
+    init = {k: v.detach().clone() for k, v in params.items()}
+    loss_fn = mlm_loss_fn(model)
+    out = {}
+    with BG.solo_group(device):
+        for name in BERT_OPT_W1:
+            with torch.no_grad():
+                for k, v in params.items():
+                    v.copy_(init[k])
+            torch.cuda.reset_peak_memory_stats()
+            opt = _opt_chain(name, tree_leaves(params), 1,
+                             dict(OPT_LR, adam=OPT_LR["adam_base"]))
+            step = build_train_step(loss_fn, opt, params,
+                                    compute_dtype=torch.bfloat16)
+            losses, times = [float(step(batches[0]))], []
+            for b in batches[1:6]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(b)))
+                times.append((time.perf_counter() - t0) * 1e3)
+            _, prof = profile_run(lambda: step(batches[6]))
+            prof.pop("top_kernels_ms")
+            masters = tree_leaves(params)
+            for m in masters:
+                m.grad = torch.full_like(m, 1e-6)
+            _, prof_opt = profile_run(opt.step)
+            prof_opt.pop("top_kernels_ms")
+            for m in masters:
+                m.grad = None
+            if not all(math.isfinite(x) for x in losses):
+                raise RuntimeError(f"{name}: losses {losses}")
+            out[name] = {"step_ms": statistics.median(times),
+                         "step_ms_all": times, "losses": losses,
+                         "step_profile": prof, "optimizer_step": prof_opt,
+                         "peak_memory_gb":
+                             torch.cuda.max_memory_allocated() / 1e9}
+            del opt, step
+    base = out["sync_sgd"]
+    for name, rec in out.items():
+        rec["step_ms_over_sync_sgd"] = rec["step_ms"] - base["step_ms"]
+        rec["optimizer_launches_over_sync_sgd"] = (
+            rec["optimizer_step"]["launches"]
+            - base["optimizer_step"]["launches"])
+    return {"batch": BERT_BATCH, "seq": BERT_SEQ,
+            "params": sum(v.numel() for v in params.values()),
+            "lr_adam": OPT_LR["adam_base"], "runs": out}
+
+
+def opt_bert_base_2r_worker(rank: int, world: int, tmp: str) -> None:
+    """One rank of ``optimizers_bert_base_2r``: each run's step wall, the
+    collectives' wall and bytes (every all-reduce and exchange timed,
+    synchronised, in this process; an exchange's bytes are those sent),
+    peak memory, the monitors' statistics, and the replica checks
+    (all-reduce MAX and MIN of the parameters, outside the timed steps:
+    SMA's after its last step, adaptive SGD's after each step from the
+    switch on)."""
+    import torch.distributed as dist
+    from kungfu_tpu_torch.comm import collectives as C
+    from kungfu_tpu_torch.examples.bert_sma_gns import mlm_loss_fn
+    from kungfu_tpu_torch.training import (broadcast_variables,
+                                           build_train_step)
+    device = _join(rank, world, tmp)
+    model, batches = _bert_base_mlm(device, 5, BERT_BATCH * world, 4)
+    params = dict(model.named_parameters())
+    broadcast_variables(params)
+    init = {k: v.detach().clone() for k, v in params.items()}
+    loss_fn = mlm_loss_fn(model)
+    acc = {"on": False, "s": 0.0, "bytes": 0}
+    all_reduce = dist.all_reduce
+
+    def timed(fn, nbytes):
+        def call(*a, **k):
+            if not acc["on"]:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc["s"] += time.perf_counter() - t0
+            acc["bytes"] += nbytes(*a)
+            return out
+        return call
+
+    dist.all_reduce = timed(all_reduce,
+                            lambda t, *a: t.numel() * t.element_size())
+    C.ring_exchange = timed(C.ring_exchange, lambda x, *a: sum(
+        t.numel() * t.element_size() for t in tree_leaves(x)))
+
+    def spread():
+        """max |p_0 - p_1| and max(|p_0 - p_1| - 1e-4 min |p|) over all
+        parameters (two ranks)."""
+        flat = torch.cat([t.detach().reshape(-1) for t in params.values()])
+        hi, lo = flat.clone(), flat.clone()
+        all_reduce(hi, op=dist.ReduceOp.MAX)
+        all_reduce(lo, op=dist.ReduceOp.MIN)
+        gap = hi - lo
+        return (float(gap.max()),
+                float((gap - 1e-4 * torch.minimum(hi.abs(), lo.abs())).max()))
+
+    out = {}
+    for name in BERT_OPT_2R:
+        with torch.no_grad():
+            for k, v in params.items():
+                v.copy_(init[k])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        opt = _opt_chain(name, tree_leaves(params), world,
+                         dict(OPT_LR, adam=OPT_LR["adam_base"]))
+        step = build_train_step(loss_fn, opt, params,
+                                compute_dtype=torch.bfloat16)
+        stat = {"sma_gns_local_adam": "noise_scale",
+                "variance_adam": "variance"}.get(name)
+        rec = {"step_ms": [], "collective_ms": [], "bytes": [],
+               "losses": [], "stat": [], "spread": []}
+        for t, b in enumerate(batches):
+            acc.update(on=t > 0, s=0.0, bytes=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec["losses"].append(float(step(b)))
+            if t > 0:
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["collective_ms"].append(acc["s"] * 1e3)
+                rec["bytes"].append(acc["bytes"])
+            acc["on"] = False
+            if stat:
+                rec["stat"].append(float(getattr(opt, stat)))
+            if ((name == "adaptive" and t >= 2) or (
+                    name == "sma_gns_local_adam" and t == len(batches) - 1)):
+                rec["spread"].append(spread())
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[name] = rec
+        del opt, step
+    with open(os.path.join(tmp, f"r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_optimizers_bert_base_2r(device) -> dict:
+    """BERT-base (as ``optimizers_bert_base_w1``, 8 x 512 tokens a rank)
+    at 2 processes sharing the card over gloo: SMA(GNS(Adam, local)), the
+    variance over Adam, adaptive SGD (switch at step 2) and pair
+    averaging over Adam, 1 warm-up and 3 timed steps each.  Gates:
+    ``noise_scale`` and ``variance`` finite and equal on both ranks; SMA's
+    replicas not identical; adaptive's replicas within rtol 1e-4, atol
+    1e-6 of each other from the switch on.  Gloo stages every all-reduce
+    of a CUDA tensor through the host, so the collectives' wall is an
+    artifact of two ranks on one card, not the optimizers' cost."""
+    world = 2
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        _spawn([_worker_argv("opt_bert_base_2r_worker", r, world, tmp)
+                for r in range(world)], 900, tmp)
+        res = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"r{r}.json")) as f:
+                res.append(json.load(f))
+    r0, r1 = res
+    for name in ("sma_gns_local_adam", "variance_adam"):
+        a, b = r0[name]["stat"], r1[name]["stat"]
+        if a != b or not all(math.isfinite(x) for x in a):
+            raise RuntimeError(f"{name}: statistics {a} on rank 0, {b} on "
+                               f"rank 1")
+    if r0["sma_gns_local_adam"]["spread"][-1][0] <= 0:
+        raise RuntimeError("SMA's replicas are identical")
+    # steps 0, 1 average, step 2 switches; the spread after steps 2 and 3
+    excess = [s[1] for s in r0["adaptive"]["spread"]]
+    if not all(e <= 1e-6 for e in excess):
+        raise RuntimeError(f"adaptive SGD after the switch: replicas apart "
+                           f"by {excess} beyond rtol 1e-4 (atol 1e-6)")
+    runs = {name: {"step_ms": [r[name]["step_ms"] for r in res],
+                   "collective_ms": [r[name]["collective_ms"] for r in res],
+                   "bytes_a_step": r0[name]["bytes"][-1],
+                   "peak_memory_gb": [r[name]["peak_memory_gb"]
+                                      for r in res],
+                   "losses": r0[name]["losses"], "stat": r0[name]["stat"],
+                   "spread": r0[name]["spread"]}
+            for name in BERT_OPT_2R}
+    return {"ranks": world, "backend": "gloo", "runs": runs,
+            "adaptive_excess_after_switch": excess,
+            "note": "collective wall: gloo stages CUDA tensors through the "
+                    "host (two ranks on one card)"}
+
+
+CONVERGENCE_RANKS = 8
+README_CURVE = {"initial_loss": 6.76, "final_loss": 4.50,
+                "source": "README.md:994, a CPU run of the JAX script "
+                          "(2 processes x 4 lanes)"}
+
+
+def phase_convergence_bert(device) -> dict:
+    """The README's recorded convergence run on the card: ``python -m
+    kungfu_tpu_torch.examples.convergence_bert --world 8 --batch-per-lane
+    8 --steps 200 --backend gloo`` (8 ranks for its 2 processes x 4
+    lanes, bf16), gated by the example's own ``--target 5.0``."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "convergence.json")
+        t0 = time.perf_counter()
+        _spawn([[sys.executable, "-m",
+                 "kungfu_tpu_torch.examples.convergence_bert", "--world",
+                 str(CONVERGENCE_RANKS), "--batch-per-lane", "8",
+                 "--steps", "200", "--backend", "gloo", "--json", out]],
+               900, tmp)
+        wall = time.perf_counter() - t0
+        with open(out) as f:
+            rec = json.load(f)
+        with open(os.path.join(tmp, "0.log")) as f:
+            line = [ln for ln in f.read().splitlines()
+                    if ln.startswith("CONVERGENCE ")][-1]
+    if not rec["reached"] or rec["final_loss"] > rec["target"]:
+        raise RuntimeError(f"convergence_bert: {line}")
+    return {"line": line, "curve": rec["curve"], "wall_s": wall,
+            "readme": README_CURVE}
+
+
 # the kernels' entry points in a ptxas report (nvcc names a source's
 # anonymous namespace after the file, "paged_attention_cu_<hash>")
 KERNEL_NAMES = r"(?:fa|paged_attention)_(?!cu_)\w+"
@@ -1922,6 +2451,13 @@ def main() -> int:
           **phase_train_resnet50_profile(device)})
     emit({"phase": "prefetch", **phase_prefetch(device)})
     emit({"phase": "bert_base", **phase_bert_base(device)})
+    emit({"phase": "optimizers_card_vs_cpu",
+          **phase_optimizers_card_vs_cpu(device)})
+    emit({"phase": "optimizers_bert_base_w1",
+          **phase_optimizers_bert_base_w1(device)})
+    emit({"phase": "optimizers_bert_base_2r",
+          **phase_optimizers_bert_base_2r(device)})
+    emit({"phase": "convergence_bert", **phase_convergence_bert(device)})
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
 
     print(BG.device_name(device), flush=True)

@@ -5,8 +5,8 @@ Every function takes a tensor, or a dict/list of tensors, and a process
 group (None = the default group) in place of the JAX axis name, and
 returns new tensors; the inputs are left as they are.  At world size 1
 they still call into the group.  The graph-scheduled collectives
-(``graph_all_reduce``, ``striped_graph_all_reduce``, ``ring_exchange``)
-come with the parallel slice of the port.
+(``graph_all_reduce``, ``striped_graph_all_reduce``) come with the
+parallel slice of the port.
 """
 from __future__ import annotations
 
@@ -90,3 +90,38 @@ def hierarchical_all_reduce(x, inner_group, outer_group, op: str = "SUM"):
         t = _reduce(t, inner_group, "SUM" if op == "MEAN" else op)
         return _reduce(t, outer_group, op)
     return tree_map(h, x)
+
+
+def ring_exchange(x, group, shift: int, n: int):
+    """Send to (rank + shift) mod n, receive from (rank - shift) mod n:
+    ``lax.ppermute`` with ``perm=[(i, (i + shift) % n)]``, so rank i's
+    value lands at rank i + shift.  The pair-averaging primitive.
+
+    ``n`` is the group size (checked).  The tree goes as one fused buffer
+    per dtype in one ``batch_isend_irecv``.  Gloo's point-to-point takes
+    CPU tensors only, so on a gloo group a CUDA buffer is staged through
+    the host and back."""
+    from ..ops import defuse, fuse
+    size = dist.get_world_size(group)
+    if n != size:
+        raise ValueError(f"ring_exchange over {n} ranks on a group of {size}")
+    if shift % n == 0:
+        return tree_map(lambda t: t.clone(), x)
+    me = dist.get_rank(group)
+    dst, src = (me + shift) % n, (me - shift) % n
+    if group is not None and group is not dist.group.WORLD:
+        dst = dist.get_global_rank(group, dst)
+        src = dist.get_global_rank(group, src)
+    flat, spec = fuse(x)
+    staged = dist.get_backend(group) == "gloo"
+    sends = {dt: t.cpu() if staged and t.is_cuda else t
+             for dt, t in flat.items()}
+    recvs = {dt: torch.empty_like(t) for dt, t in sends.items()}
+    ops = []
+    for dt in sorted(sends):
+        ops.append(dist.P2POp(dist.isend, sends[dt], dst, group))
+        ops.append(dist.P2POp(dist.irecv, recvs[dt], src, group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return defuse({dt: r.to(flat[dt].device) for dt, r in recvs.items()},
+                  spec)

@@ -16,6 +16,7 @@ import torch
 
 from .. import ops
 from ..comm import collectives as C
+from .wrap import grads_of, wrap
 
 
 def cross_replica_mean_gradients(grads: List[torch.Tensor], group=None,
@@ -40,16 +41,8 @@ def synchronous_sgd(base: torch.optim.Optimizer, group=None,
     the gradients of all its parameters over ``group`` (None = the
     default group) and then runs the base update.  Every rank must call
     ``step()``, as the average is collective."""
-    cls = base.__class__
+    def step(opt, base_step):
+        cross_replica_mean_gradients(grads_of(opt), group, fusion)
+        return base_step()
 
-    def step(self, closure=None):
-        grads = [p.grad for group_ in self.param_groups
-                 for p in group_["params"] if p.grad is not None]
-        cross_replica_mean_gradients(grads, self._kf_group,
-                                     self._kf_fusion)
-        return cls.step(self, closure)
-
-    base.__class__ = type(cls.__name__, (cls,), {"step": step})
-    base._kf_group = group
-    base._kf_fusion = fusion
-    return base
+    return wrap(base, step)
