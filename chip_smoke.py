@@ -86,6 +86,21 @@
    README's convergence run, 8 ranks x 200 steps of
    ``kungfu_tpu_torch.examples.convergence_bert``, to its target
    (``convergence_bert``).
+12. re-forms an NCCL group of one at versions 0, 1 and 2, each at a fresh
+   FileStore, with an all-reduce and a tree broadcast at each, and
+   ``memory_reserved`` and the card's used memory held to a margin
+   (``elastic_nccl_reinit``); and
+   trains the 470m GPT at full width, 12 of its 24 layers, while the
+   port's config server and watcher resize it 2 -> 4 -> 3 (ranks sharing
+   the card over gloo; rank 0 proposes each stage, the watcher spawns the
+   newcomers and reaps the rank that leaves): the replicas and Adam
+   moments bit for bit
+   equal on every rank after each resize and at the end, the trained
+   samples counted, the losses held to one process's over the same 9
+   global batches; with planted faults (a newcomer that keeps its own
+   weights, one that gets them but fresh Adam moments, a rank that takes
+   its rows by the 4-rank block at 3 ranks, resumed from the run's
+   checkpoint) each caught (``elastic_gpt_470m``).
 
 Each phase prints a JSON line.  The last two lines are the kernels record
 and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; so
@@ -2351,6 +2366,432 @@ def phase_convergence_bert(device) -> dict:
             "readme": README_CURVE}
 
 
+# ------------------------------------------- phase 12: the elastic plane
+ELASTIC_NCCL_VERSIONS = 3
+# memory_reserved, and the card's used memory (mem_get_info, which also
+# counts what NCCL allocates outside the cache: a communicator the
+# teardown failed to free), after the last NCCL re-formation may exceed
+# the first's by at most this (the same tensors at every version come
+# from the cache)
+ELASTIC_NCCL_MARGIN = 16 << 20
+ELASTIC_SCHEDULE = "2:3,4:3,3:3"
+# depth cut from the preset's 24 layers: at 24 the two elastic phases took
+# 203-212 s on the H100, over their 180 s budget (PERF.md, PR 12)
+ELASTIC_LAYERS = 12
+ELASTIC_ROWS = 12                # global batch, sequences of 2048 tokens
+ELASTIC_SAVE_AT = 6              # the checkpoint the fault job resumes
+# |elastic - one-process| mean loss of a step (bf16 compute: the ranks
+# round their block's mean gradient, the one process the batch's)
+ELASTIC_LOSS_TOL = 2e-2
+# the fault job: 1 rank for a step, grown to 4 (rank 1 keeps its own
+# weights, rank 2 gets them with fresh Adam moments), a step, then every
+# rank resumes the sound run's step-6 checkpoint (which repairs both),
+# the cluster shrinks 4 -> 3 and trains steps 6-8 with rank 1, a
+# survivor, still on the 4-rank block
+ELASTIC_FAULT_JOB = ("1:1,4:1,3:7", {1: "own_init,old_block",
+                                     2: "fresh_moments"}, 2)
+
+
+def elastic_args():
+    """The 470m preset at full width, ``ELASTIC_LAYERS`` deep, flash
+    attention (K1-K4)."""
+    return BG.parse_args(["--preset", "470m", "--device", "cuda",
+                          "--attn", "flash", "--n-layers",
+                          str(ELASTIC_LAYERS)])
+
+
+def elastic_batch(i: int, device):
+    """Global batch ``i``: row r holds 2049 seeded tokens drawn from the
+    first 2^(4+r) ids, so rows differ in how fast their loss falls (a rank
+    that trains the wrong rows changes the mean loss)."""
+    rng = np.random.RandomState(1000 + i)
+    rows = np.stack([rng.randint(0, 2 ** (4 + r), 2049)
+                     for r in range(ELASTIC_ROWS)]).astype(np.int32)
+    t = torch.from_numpy(rows).to(device)
+    return t[:, :-1].contiguous(), t[:, 1:].contiguous()
+
+
+def elastic_optimizer(leaves, n, group=None):
+    """Sync-SGD AdamW (``benchmarks.gpt``'s settings), one fused
+    all-reduce per dtype."""
+    from kungfu_tpu_torch.optimizers import synchronous_sgd
+    return synchronous_sgd(torch.optim.AdamW(
+        leaves, lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4),
+        group, fusion=True)
+
+
+def elastic_checksums(trainer) -> dict:
+    """Which ranks' parameters and Adam moments differ from rank 0's, bit
+    for bit: each rank sums every leaf's bits (int32 words, in int64) and
+    the vectors are gathered; also the count of differing leaves."""
+    import torch.distributed as dist
+    leaves = trainer._leaves()
+    zero = torch.zeros((), dtype=torch.int64, device=leaves[0].device)
+    sums = [t.detach().view(torch.int32).sum(dtype=torch.int64)
+            for t in leaves]
+    moments = 0
+    for t in leaves:
+        st = trainer.optimizer.state.get(t, {})
+        for key in ("exp_avg", "exp_avg_sq"):
+            v = st.get(key)
+            moments += v is not None
+            sums.append(zero if v is None else
+                        v.view(torch.int32).sum(dtype=torch.int64))
+    vec = torch.stack(sums).cpu()
+    got = [torch.empty_like(vec) for _ in range(trainer.n)]
+    dist.all_gather(got, vec)
+    p = len(leaves)
+    return {"version": trainer.version, "n": trainer.n,
+            "moments": moments,
+            "params_differ": [int((g[:p] != got[0][:p]).sum()) for g in got],
+            "moments_differ": [int((g[p:] != got[0][p:]).sum())
+                               for g in got]}
+
+
+def elastic_gpt_worker() -> None:
+    """One rank of ``elastic_gpt_470m``, started by the port's watcher
+    (``python -c "import chip_smoke as S; S.elastic_gpt_worker()"`` with
+    the worker flags): the 470m GPT under DistributedElasticTrainer (gloo,
+    CUDA tensors), rank 0 proposing each stage of ``--schedule``;
+    bit-for-bit checks of the replicas when it joins, after every resize
+    and at the end; one JSON record of its run."""
+    import argparse
+    import kungfu_tpu_torch as kft
+    from kungfu_tpu_torch import distributed as D
+    from kungfu_tpu_torch import training as T
+    from kungfu_tpu_torch.checkpoint import Checkpointer
+    from kungfu_tpu_torch.elastic import DistributedElasticTrainer, StepSchedule
+    from kungfu_tpu_torch.launcher import env as E
+    ap = argparse.ArgumentParser()
+    E.add_args(ap)
+    for flag in ("--out", "--schedule", "--fault", "--ckpt"):
+        ap.add_argument(flag, default="")
+    ap.add_argument("--save-at", type=int, default=-1)
+    ap.add_argument("--restore-after", type=int, default=-1)
+    ns = ap.parse_args(sys.argv[1:])
+    we = E.install(E.from_args(ns))
+    rank = we.rank()
+    device = resolve_device("cuda")
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    args = elastic_args()
+    cfg = BG.make_config(args)
+    params = G.init_params(torch.Generator(device=device).manual_seed(rank),
+                           cfg)
+    rec = {"rank": rank, "join_version": we.cluster_version, "fault":
+           ns.fault, "checks": [], "steps": [], "resizes": []}
+    torch.cuda.reset_peak_memory_stats()
+    real_bcast, real_slice = D.broadcast_tree, T._local_slice
+    faults = ns.fault.split(",")
+    if "own_init" in faults or "fresh_moments" in faults:
+        def bcast(tree, group=None, root=0):
+            got = real_bcast(tree, group, root)
+            own = {"params": params} if "own_init" in faults else got
+            return {**got, **own, "opt": None}
+        D.broadcast_tree = bcast
+    if "old_block" in faults:
+        def old_block(batch, r, world):      # the 4-rank block at 3 ranks
+            return real_slice(batch, r, 4 if world == 3 else world)
+        T._local_slice = old_block
+    t0 = time.perf_counter()
+    trainer = DistributedElasticTrainer(
+        BG.make_loss_fn(args, cfg), elastic_optimizer, params,
+        backend="gloo", compute_dtype=cfg.dtype, microbatch=1)
+    rec["construct_s"] = time.perf_counter() - t0
+    rec["received_bytes"] = trainer.last_sync_bytes
+    D.broadcast_tree = real_bcast
+    rec["checks"].append({"at": "join", **elastic_checksums(trainer)})
+    reform = trainer._reform
+
+    def reform_and_check(peers, version):
+        n0 = trainer.n
+        out = reform(peers, version)
+        rec["resizes"].append({"from": n0, "to": len(peers), "version":
+                               version, "seconds": trainer.last_resize_seconds,
+                               "sent_bytes": trainer.last_sync_bytes})
+        if not kft.detached():
+            rec["checks"].append({"at": "resize",
+                                  **elastic_checksums(trainer)})
+        return out
+    trainer._reform = reform_and_check
+    ck = Checkpointer(ns.ckpt) if ns.ckpt else None
+    schedule = StepSchedule.parse(ns.schedule)
+    for name in FA.launches:
+        FA.launches[name] = 0
+    microbatches = 0
+    while trainer.step_count < schedule.total_steps():
+        if trainer.step_count == ns.restore_after:
+            trainer.restore_checkpoint(ck)
+            rec["checks"].append({"at": "restore",
+                                  **elastic_checksums(trainer)})
+        i = trainer.step_count
+        if i == ns.save_at:
+            trainer.save_checkpoint(ck)
+        want = schedule.size_at(i)
+        if rank == 0 and want != trainer.n:
+            if not trainer.propose_new_size(want):
+                raise RuntimeError(f"proposal of {want} ranks refused")
+        batch = elastic_batch(i, device)
+        t0 = time.perf_counter()
+        loss = trainer.step(batch)
+        if loss is None:
+            break
+        rec["steps"].append({"step": i, "n": trainer.n, "loss": loss,
+                             "seconds": time.perf_counter() - t0})
+        microbatches += ELASTIC_ROWS // trainer.n
+    rec["detached"] = kft.detached()
+    if not rec["detached"]:
+        rec["checks"].append({"at": "end", **elastic_checksums(trainer)})
+        rec["trained_samples"] = trainer.trained_samples
+    if ck is not None:
+        ck.wait()
+    rec["launches"] = dict(FA.launches)
+    rec["microbatches"] = microbatches
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(ns.out, f"r{rank}_v{we.cluster_version}.json"),
+              "w") as f:
+        json.dump(rec, f)
+    trainer.shutdown()
+
+
+def elastic_job(schedule: str, tmp: str, name: str, faults=None,
+                extra=(), timeout: float = 600) -> list:
+    """Run one elastic job through the port's config server and watcher:
+    a cluster of the schedule's first size, every rank an
+    :func:`elastic_gpt_worker`.  Returns the workers' records and the
+    watcher's exit codes."""
+    from kungfu_tpu_torch.elastic import ConfigServer, StepSchedule
+    from kungfu_tpu_torch.launcher import env as E
+    from kungfu_tpu_torch.launcher.watch import watch_run
+    from kungfu_tpu_torch.plan import Cluster, HostList
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    size0 = StepSchedule.parse(schedule).size_at(0)
+    server = ConfigServer().start()
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        server.put_cluster(Cluster.from_hostlist(
+            HostList.parse("127.0.0.1:4"), size0))
+
+        def argv_for(rank, cluster, version):
+            fault = (faults or {}).get(rank)
+            return [sys.executable, "-c",
+                    "import chip_smoke as S; S.elastic_gpt_worker()",
+                    "--out", out, "--schedule", schedule, *extra,
+                    *(["--fault", fault] if fault else []),
+                    *E.worker_argv(rank, cluster.workers, version,
+                                   server.url, os.path.join(tmp, "rdzv_"
+                                                            + name))]
+        exits = watch_run(server, argv_for, out,
+                          env=dict(os.environ, PYTHONPATH=here), cwd=here,
+                          timeout=timeout)
+    finally:
+        server.stop()
+    recs = []
+    for fn in sorted(os.listdir(out)):
+        if fn.endswith(".json"):
+            with open(os.path.join(out, fn)) as f:
+                recs.append(json.load(f))
+    return recs, exits
+
+
+def elastic_reference(device) -> dict:
+    """One process over the same global batches from rank 0's weights
+    (``benchmarks.gpt``'s step: 12 microbatches of one sequence)."""
+    from kungfu_tpu_torch.training import build_train_step
+    args = elastic_args()
+    cfg = BG.make_config(args)
+    steps = sum(int(s.split(":")[1]) for s in ELASTIC_SCHEDULE.split(","))
+    losses, seconds = [], []
+    with BG.solo_group(device):
+        params = G.init_params(torch.Generator(device=device).manual_seed(0),
+                               cfg)
+        opt = elastic_optimizer(tree_leaves(params), 1)
+        step = build_train_step(BG.make_loss_fn(args, cfg), opt, params,
+                                accum_steps=ELASTIC_ROWS,
+                                compute_dtype=cfg.dtype)
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(elastic_batch(i, device))))
+            seconds.append(time.perf_counter() - t0)
+        del params, opt, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_seconds": seconds}
+
+
+def _elastic_bad_checks(recs) -> list:
+    return [(r["rank"], c["at"], c["params_differ"], c["moments_differ"])
+            for r in recs for c in r["checks"]
+            if any(c["params_differ"]) or any(c["moments_differ"])
+            or (c["at"] != "join" and c["moments"] == 0)]
+
+
+def _elastic_loss_gap(recs, ref) -> list:
+    r0 = [r for r in recs if r["rank"] == 0 and r["steps"]]
+    return [abs(s["loss"] - ref[s["step"]]) for r in r0 for s in r["steps"]]
+
+
+def phase_elastic_gpt_470m(device) -> dict:
+    """The 470m GPT resized 2 -> 4 -> 3 while it trains (see
+    :func:`elastic_gpt_worker`), ranks sharing the card over gloo, held
+    against one process over the same batches; then the planted faults."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = elastic_reference(device)
+    ref_s = time.perf_counter() - t0
+    steps = len(ref["losses"])
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        recs, exits = elastic_job(ELASTIC_SCHEDULE, tmp, "sound", extra=(
+            "--ckpt", ckpt, "--save-at", str(ELASTIC_SAVE_AT)))
+        sound_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sched, faults, after = ELASTIC_FAULT_JOB
+        frecs, _ = elastic_job(sched, tmp, "faults", faults, extra=(
+            "--ckpt", ckpt, "--restore-after", str(after)))
+        faults_s = time.perf_counter() - t0
+    # the sound run
+    bad = _elastic_bad_checks(recs)
+    if bad:
+        raise RuntimeError(f"replicas differ (rank, at, params, moments): "
+                           f"{bad}")
+    if sorted(exits.values()) != [0] * 4 or len(recs) != 4:
+        raise RuntimeError(f"expected 4 workers exiting 0: {exits}")
+    left = [r for r in recs if r["detached"]]
+    if [r["rank"] for r in left] != [3]:
+        raise RuntimeError(f"detached: {[r['rank'] for r in left]}")
+    alive = [r for r in recs if not r["detached"]]
+    samples = {r["rank"]: r["trained_samples"] for r in alive}
+    if set(samples.values()) != {steps * ELASTIC_ROWS}:
+        raise RuntimeError(f"trained samples {samples}")
+    gap = _elastic_loss_gap(recs, ref["losses"])
+    if len(gap) != steps or max(gap) > ELASTIC_LOSS_TOL:
+        raise RuntimeError(f"losses apart from one process by {gap} "
+                           f"(limit {ELASTIC_LOSS_TOL})")
+    for r in recs:
+        need = ELASTIC_LAYERS * r["microbatches"]
+        short = {k: v for k, v in r["launches"].items() if v < need}
+        if short:
+            raise RuntimeError(f"rank {r['rank']}: flash kernels launched "
+                               f"{short}, needed {need}")
+    # the planted faults
+    grew = [c for r in frecs if r["rank"] == 0 for c in r["checks"]
+            if c["at"] == "resize"][0]
+    caught = {fault: {"rank": rank,
+                      "params_differ": grew["params_differ"][rank],
+                      "moments_differ": grew["moments_differ"][rank]}
+              for rank, fault in ((1, "own_init"), (2, "fresh_moments"))}
+    if not (caught["own_init"]["params_differ"] > 0
+            and caught["fresh_moments"]["moments_differ"] > 0
+            and caught["fresh_moments"]["params_differ"] == 0):
+        raise RuntimeError(f"grow faults not caught as planted: {grew}")
+    # the resumed part (steps 6-8): replicas equal again, losses apart
+    resumed = [c for r in frecs for c in r["checks"]
+               if c["at"] in ("restore", "end")]
+    if any(any(c["params_differ"]) or any(c["moments_differ"])
+           for c in resumed):
+        raise RuntimeError(f"the resumed replicas differ: {resumed}")
+    old_gap = [g for r in frecs if r["rank"] == 0 for s, g in zip(
+        r["steps"], _elastic_loss_gap([r], ref["losses"]))
+        if s["step"] >= ELASTIC_SAVE_AT]
+    caught["old_block"] = {"rank": 1, "max_loss_gap": max(old_gap),
+                           "loss_gaps": old_gap}
+    if len(old_gap) != steps - ELASTIC_SAVE_AT or max(
+            old_gap) <= ELASTIC_LOSS_TOL:
+        raise RuntimeError(f"old-block fault not caught: loss gaps "
+                           f"{old_gap} within {ELASTIC_LOSS_TOL}")
+    r0 = [r for r in recs if r["rank"] == 0][0]
+    by_n = {}                   # a stage's first step holds its resize
+    for s in r0["steps"]:
+        if s["step"] not in (0, 3, 6):
+            by_n.setdefault(s["n"], []).append(s["seconds"])
+    return {
+        "schedule": ELASTIC_SCHEDULE, "backend": "gloo",
+        "layers": ELASTIC_LAYERS,
+        "ranks_spawned": len(recs),
+        "losses": [s["loss"] for s in r0["steps"]],
+        "reference_losses": ref["losses"], "max_loss_gap": max(gap),
+        "loss_tol": ELASTIC_LOSS_TOL,
+        "reference_step_seconds": ref["step_seconds"],
+        "resizes": r0["resizes"],
+        "newcomers": [{"rank": r["rank"], "version": r["join_version"],
+                       "construct_s": r["construct_s"],
+                       "received_bytes": r["received_bytes"]}
+                      for r in recs if r["join_version"] > min(
+                          x["join_version"] for x in recs)],
+        "step_seconds_by_ranks": by_n,
+        "peak_memory_gb": {f"r{r['rank']}_v{r['join_version']}":
+                           r["peak_memory_gb"] for r in recs},
+        "trained_samples": samples, "checks": len(
+            [c for r in recs for c in r["checks"]]),
+        "launches_rank0": r0["launches"],
+        "faults": caught,
+        "wall_s": {"reference": ref_s, "sound": sound_s,
+                   "faults": faults_s},
+        "note": "step times: gloo stages every all-reduce of a CUDA tensor "
+                "through the host (the ranks share one card); the first "
+                "step of each stage holds its resize"}
+
+
+def phase_elastic_nccl_reinit(device) -> dict:
+    """NCCL at world 1 re-formed at versions 0, 1, 2, each at a fresh
+    FileStore: an all-reduce and a tree broadcast at every version, the
+    seconds of each (re)formation up to its first collective, and
+    ``memory_reserved`` and the card's used memory after each (and the
+    latter once before the first formation)."""
+    import torch.distributed as dist
+    from kungfu_tpu_torch import distributed as D
+    peers = ["127.0.0.1:31100"]
+    tree = {"w": torch.randn(1024, 1024, device=device),
+            "b": [torch.ones(4096, dtype=torch.bfloat16, device=device), 7],
+            "step": torch.tensor(3.0)}
+    flat = {k: v for k, v in (("w", tree["w"].clone()),
+                              ("b", tree["b"][0].clone()))}
+    seconds, reserved, used = [], [], []
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    used_before = total - free
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for v in range(ELASTIC_NCCL_VERSIONS):
+                t0 = time.perf_counter()
+                if v == 0:
+                    D.initialize(peers, 0, v, tmp, "nccl")
+                elif not D.reinit(peers, 0, v, tmp, "nccl"):
+                    raise RuntimeError(f"no re-formation at version {v}")
+                x = torch.full((1 << 20,), float(v + 1), device=device)
+                dist.all_reduce(x)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                got = D.broadcast_tree(tree)
+                torch.cuda.synchronize()
+                if (D.version() != v or not bool((x == v + 1).all())
+                        or not torch.equal(got["w"], flat["w"])
+                        or not torch.equal(got["b"][0], flat["b"])
+                        or got["b"][1] != 7 or float(got["step"]) != 3.0):
+                    raise RuntimeError(f"version {v}: wrong values")
+                del x, got
+                reserved.append(torch.cuda.memory_reserved())
+                free, total = torch.cuda.mem_get_info()
+                used.append(total - free)
+        finally:
+            D.shutdown()
+    growth = reserved[-1] - reserved[0]
+    used_growth = used[-1] - used[0]
+    for what, grew in (("memory_reserved", growth),
+                       ("the card's used memory", used_growth)):
+        if grew > ELASTIC_NCCL_MARGIN:
+            raise RuntimeError(f"{what} grew {grew} bytes over "
+                               f"{ELASTIC_NCCL_VERSIONS} versions (margin "
+                               f"{ELASTIC_NCCL_MARGIN})")
+    return {"versions": ELASTIC_NCCL_VERSIONS, "reinit_seconds": seconds,
+            "memory_reserved": reserved, "reserved_growth": growth,
+            "margin": ELASTIC_NCCL_MARGIN,
+            "device_used_before_bytes": used_before,
+            "device_used_bytes": used, "device_used_growth": used_growth}
+
+
 # the kernels' entry points in a ptxas report (nvcc names a source's
 # anonymous namespace after the file, "paged_attention_cu_<hash>")
 KERNEL_NAMES = r"(?:fa|paged_attention)_(?!cu_)\w+"
@@ -2458,6 +2899,9 @@ def main() -> int:
     emit({"phase": "optimizers_bert_base_2r",
           **phase_optimizers_bert_base_2r(device)})
     emit({"phase": "convergence_bert", **phase_convergence_bert(device)})
+    emit({"phase": "elastic_nccl_reinit",
+          **phase_elastic_nccl_reinit(device)})
+    emit({"phase": "elastic_gpt_470m", **phase_elastic_gpt_470m(device)})
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
 
     print(BG.device_name(device), flush=True)

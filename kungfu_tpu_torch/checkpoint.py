@@ -1,17 +1,47 @@
-"""Read the flat ``.npz`` checkpoints the JAX package writes.
+"""Checkpoints (counterpart of kungfu_tpu/checkpoint.py).
 
-``kungfu_tpu.checkpoint.save_npz`` dumps a parameter tree with one entry
-per leaf, keyed by its key path: dictionary keys and list indices joined
-by ``/`` (``"layers/0/wq"``, ``"lm_head"``).  This module decodes that
-scheme with numpy alone, so ``python -m kungfu_tpu_torch.serving --npz``
-serves weights the JAX side trained.
+The flat ``.npz`` dump: :func:`save_npz` writes a tree with one entry per
+leaf, keyed by its key path, dictionary keys and list indices joined by
+``/`` (``"layers/0/wq"``, ``"lm_head"``), as
+``kungfu_tpu.checkpoint.save_npz`` keys it; :func:`load_npz` and
+:func:`restore_npz_like` read either package's dump, so ``python -m
+kungfu_tpu_torch.serving --npz`` serves weights the JAX side trained.
+
+Periodic checkpoints: :class:`Checkpointer` keeps a window of steps, one
+directory each, holding the state tree as plain tensors (``torch.save``)
+and a ``meta.json``.  Only rank 0 of a live group writes.  The JAX
+package writes through orbax, whose sharding-aware format serves sharded
+state; for that the port waits for ``torch.distributed.checkpoint`` with
+the sharded slice.  A replica is the model, so a checkpoint written at one
+cluster size restores at any other.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple, Union
+import json
+import os
+import shutil
+import threading
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from .utils.tree import tree_map
+
+
+def save_npz(path: str, tree) -> None:
+    """Flat ``.npz`` dump of a tree (keys as the module docstring says).
+    A bfloat16 tensor is stored as float32, which numpy can hold."""
+    flat = {}
+    for key, leaf in _leaves_with_path(tree):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu()
+            if leaf.dtype == torch.bfloat16:
+                leaf = leaf.float()
+            leaf = leaf.numpy()
+        flat[key] = np.asarray(leaf)
+    np.savez(path, **flat)
 
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:
@@ -58,3 +88,117 @@ def restore_npz_like(template, flat: Union[str, Dict[str, np.ndarray]]):
         values[key] = torch.tensor(arr, device=leaf.device,
                                    dtype=leaf.dtype)
     return _rebuild(template, values)
+
+
+class Checkpointer:
+    """A window of the ``max_to_keep`` newest checkpoints under
+    ``directory``, one subdirectory per step.
+
+    ``save`` snapshots the state to the host on the caller's thread (the
+    values as they are at the call) and writes on a background thread;
+    ``wait`` blocks until the write has landed.  On a live group only rank
+    0 writes; the other ranks' ``save`` returns False."""
+
+    STATE, META = "state.pt", "meta.json"
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def save(self, step: int, state, meta: Optional[Dict[str, Any]] = None,
+             force: bool = False) -> bool:
+        """Write ``state`` (a tree of tensors and plain values) and
+        ``meta`` (JSON) as ``step``.  Returns False when this process does
+        not write: not rank 0, or ``step`` exists and not ``force``."""
+        from .elastic.snapshot import snapshot
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return False
+        self.wait()
+        if os.path.exists(self._path(step)) and not force:
+            return False
+        host = snapshot(state)
+
+        def write():
+            try:
+                tmp = self._path(step) + ".tmp"
+                shutil.rmtree(tmp, ignore_errors=True)
+                os.makedirs(tmp)
+                torch.save(host, os.path.join(tmp, self.STATE))
+                with open(os.path.join(tmp, self.META), "w") as f:
+                    json.dump(meta, f)
+                shutil.rmtree(self._path(step), ignore_errors=True)
+                os.replace(tmp, self._path(step))
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    shutil.rmtree(self._path(old), ignore_errors=True)
+            except BaseException as e:          # re-raised by wait()
+                self._error = e
+
+        self._writer = threading.Thread(target=write, daemon=True)
+        self._writer.start()
+        return True
+
+    def wait(self) -> None:
+        """Block until the last save has landed; raise its error, if any."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(d) for d in os.listdir(self.directory)
+                      if d.isdigit() and os.path.exists(
+                          os.path.join(self._path(int(d)), self.META)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, like=None, step: Optional[int] = None
+                ) -> Tuple[int, Any, Optional[Dict[str, Any]]]:
+        """``(step, state, meta)`` of ``step`` (default: the latest).  The
+        state's tensors are on the CPU; with ``like`` (a tree of the same
+        structure) each is converted to the dtype and device of the
+        matching leaf of ``like``, its shape checked."""
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        state = torch.load(os.path.join(self._path(step), self.STATE))
+        with open(os.path.join(self._path(step), self.META)) as f:
+            meta = json.load(f)
+        if like is not None:
+            state = _like(state, like)
+        return step, state, meta
+
+    def close(self) -> None:
+        self.wait()
+
+    def __enter__(self) -> "Checkpointer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _like(state, like):
+    """``state`` with each tensor converted to the dtype and device of the
+    matching leaf of ``like`` (same structure), its shape checked."""
+    keys = iter([k for k, _ in _leaves_with_path(like)])
+
+    def conv(t, leaf):
+        key = next(keys)
+        if not isinstance(leaf, torch.Tensor):
+            return t
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(f"{key!r}: checkpoint shape {tuple(t.shape)} "
+                             f"!= model shape {tuple(leaf.shape)}")
+        return t.to(dtype=leaf.dtype, device=leaf.device)
+    return tree_map(conv, state, like)

@@ -128,10 +128,14 @@ def _strides(t):
 
 def _kernel_layout_ok(t) -> bool:
     """A contiguous last dimension and 16-byte aligned rows: what the
-    kernels' 16-byte staging loads need (any other strides are fine)."""
+    kernels' 16-byte staging loads need (any other strides are fine; the
+    stride of a dimension of size 1 is never used, and a batch of one
+    sequence may carry any)."""
     isz = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and not any((s * isz) % 16 for s in t.stride()[:3]))
+            and not any((s * isz) % 16 for s, n in zip(t.stride()[:3],
+                                                        t.shape[:3])
+                        if n > 1))
 
 
 def _check(name: str, tensors: dict, dtype=None):

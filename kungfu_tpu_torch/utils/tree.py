@@ -1,4 +1,4 @@
-"""Nested dicts/lists/tuples of tensors (the JAX package's pytrees of
+"""Nested dicts/lists/tuples (NamedTuples too) of tensors (the JAX package's pytrees of
 parameters): flatten and map, with dict keys in sorted order as JAX
 flattens them."""
 from __future__ import annotations
@@ -21,6 +21,8 @@ def tree_map(fn: Callable, tree, *rest):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
-                          for i, t in enumerate(tree))
+        out = [tree_map(fn, t, *(r[i] for r in rest))
+               for i, t in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(
+            out)
     return fn(tree, *rest)
