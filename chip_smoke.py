@@ -2,6 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (kungfu_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --commit-cost
+
+With no arguments:
 
 1. builds every CUDA kernel of the port from this checkout (nvcc, into
    kungfu_tpu_torch/_build/), prints each kernel's registers and spills
@@ -100,11 +103,33 @@
    global batches; with planted faults (a newcomer that keeps its own
    weights, one that gets them but fresh Adam moments, a rank that takes
    its rows by the 4-rank block at 3 ranks, resumed from the run's
-   checkpoint) each caught (``elastic_gpt_470m``).
+   checkpoint) each caught (``elastic_gpt_470m``);
+13. trains the same model at 3 ranks sharing the card over gloo with a
+   commit at every step, under the port's config server and watcher,
+   and kills a rank: rank 2 inside its gradient
+   all-reduce of step 3 (job A), rank 0 on its committer thread between
+   the join and the publish of the commit of step 5 (job B); the watcher
+   shrinks the cluster and the survivors re-form, restore the new rank
+   0's commit and redo the step: one exclusion, the survivors at one
+   version and size, replicas and Adam moments bit for bit equal after
+   the recovery and at the end, the restored pair a published one, every
+   step counted once, every loss within the limit of one process's over
+   the same batches (6 steps in A, 7 in B), K1-K4 at every layer of
+   every microbatch; job C (4 steps, beside B) plants a restore of the
+   previous commit's state under the newest commit's counters, which the
+   loss limit must catch; each recovery's
+   timeline from the kill, the bytes the restore moved, the commits'
+   dispatch and join, the steps/s at 3 and 2 ranks and every rank's peak
+   memory (``elastic_recover_470m``).
 
 Each phase prints a JSON line.  The last two lines are the kernels record
 and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; so
 does a machine without a CUDA device.  Imports nothing of JAX.
+
+``--commit-cost`` builds the kernels, prints the card, and runs only
+``elastic_gpt_470m``'s sound schedule four times, with a commit at every
+step, with none, none and at every step again: each job's step seconds
+by cluster size (``elastic_commit_cost``).
 """
 from __future__ import annotations
 
@@ -2390,6 +2415,9 @@ ELASTIC_LOSS_TOL = 2e-2
 # survivor, still on the 4-rank block
 ELASTIC_FAULT_JOB = ("1:1,4:1,3:7", {1: "own_init,old_block",
                                      2: "fresh_moments"}, 2)
+# ``--commit-cost``: a cadence longer than any job, so only the
+# constructor commits
+COMMITS_OFF = 1 << 20
 
 
 def elastic_args():
@@ -2468,6 +2496,7 @@ def elastic_gpt_worker() -> None:
         ap.add_argument(flag, default="")
     ap.add_argument("--save-at", type=int, default=-1)
     ap.add_argument("--restore-after", type=int, default=-1)
+    ap.add_argument("--snapshot-every", type=int, default=1)
     ns = ap.parse_args(sys.argv[1:])
     we = E.install(E.from_args(ns))
     rank = we.rank()
@@ -2496,7 +2525,8 @@ def elastic_gpt_worker() -> None:
     t0 = time.perf_counter()
     trainer = DistributedElasticTrainer(
         BG.make_loss_fn(args, cfg), elastic_optimizer, params,
-        backend="gloo", compute_dtype=cfg.dtype, microbatch=1)
+        backend="gloo", compute_dtype=cfg.dtype, microbatch=1,
+        snapshot_every=ns.snapshot_every)
     rec["construct_s"] = time.perf_counter() - t0
     rec["received_bytes"] = trainer.last_sync_bytes
     D.broadcast_tree = real_bcast
@@ -2603,6 +2633,7 @@ def elastic_reference(device) -> dict:
     cfg = BG.make_config(args)
     steps = sum(int(s.split(":")[1]) for s in ELASTIC_SCHEDULE.split(","))
     losses, seconds = [], []
+    t_start = time.perf_counter()
     with BG.solo_group(device):
         params = G.init_params(torch.Generator(device=device).manual_seed(0),
                                cfg)
@@ -2616,7 +2647,8 @@ def elastic_reference(device) -> dict:
             seconds.append(time.perf_counter() - t0)
         del params, opt, step
     torch.cuda.empty_cache()
-    return {"losses": losses, "step_seconds": seconds}
+    return {"losses": losses, "step_seconds": seconds,
+            "wall_s": time.perf_counter() - t_start}
 
 
 def _elastic_bad_checks(recs) -> list:
@@ -2631,14 +2663,61 @@ def _elastic_loss_gap(recs, ref) -> list:
     return [abs(s["loss"] - ref[s["step"]]) for r in r0 for s in r["steps"]]
 
 
-def phase_elastic_gpt_470m(device) -> dict:
+def _step_seconds_by_ranks(r0) -> dict:
+    """Rank 0's step seconds of an ``ELASTIC_SCHEDULE`` job by cluster
+    size, without each stage's first step (which holds its resize)."""
+    by_n = {}
+    for s in r0["steps"]:
+        if s["step"] not in (0, 3, 6):
+            by_n.setdefault(s["n"], []).append(s["seconds"])
+    return by_n
+
+
+def phase_elastic_commit_cost(device) -> dict:
+    """What the commits cost ``elastic_gpt_470m``: its sound schedule (no
+    checkpoint) with a commit at every step (the trainer's default) and
+    with none after the constructor's, in the order on, off, off, on.
+    Each job's step seconds by cluster size, and the mean of each size
+    over the two jobs of a setting."""
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, every in enumerate((1, COMMITS_OFF, COMMITS_OFF, 1)):
+            t0 = time.perf_counter()
+            recs, exits = elastic_job(ELASTIC_SCHEDULE, tmp, f"every_{i}",
+                                      extra=("--snapshot-every", str(every)))
+            wall = time.perf_counter() - t0
+            bad = _elastic_bad_checks(recs)
+            if bad or sorted(exits.values()) != [0] * 4:
+                raise RuntimeError(f"commit-cost job {i} (snapshot_every="
+                                   f"{every}): exits {exits}, replicas "
+                                   f"differ {bad}")
+            r0 = [r for r in recs if r["rank"] == 0][0]
+            runs.append({"snapshot_every": every, "wall_s": wall,
+                         "step_seconds_by_ranks": _step_seconds_by_ranks(r0),
+                         "peak_memory_gb": {
+                             f"r{r['rank']}_v{r['join_version']}":
+                             r["peak_memory_gb"] for r in recs}})
+    mean = {}
+    for setting, every in (("commits", 1), ("no_commits", COMMITS_OFF)):
+        by_n = {}
+        for run in runs:
+            if run["snapshot_every"] == every:
+                for n, secs in run["step_seconds_by_ranks"].items():
+                    by_n.setdefault(n, []).extend(secs)
+        mean[setting] = {n: sum(v) / len(v) for n, v in by_n.items()}
+    return {"schedule": ELASTIC_SCHEDULE, "runs": runs,
+            "mean_step_seconds": mean,
+            "commit_share": {n: mean["commits"][n] / mean["no_commits"][n] - 1
+                             for n in mean["commits"]}}
+
+
+def phase_elastic_gpt_470m(device, ref: dict) -> dict:
     """The 470m GPT resized 2 -> 4 -> 3 while it trains (see
     :func:`elastic_gpt_worker`), ranks sharing the card over gloo, held
-    against one process over the same batches; then the planted faults."""
+    against one process over the same batches (``ref``,
+    :func:`elastic_reference`); then the planted faults."""
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ref = elastic_reference(device)
-    ref_s = time.perf_counter() - t0
+    ref_s = ref["wall_s"]
     steps = len(ref["losses"])
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt")
@@ -2702,10 +2781,6 @@ def phase_elastic_gpt_470m(device) -> dict:
         raise RuntimeError(f"old-block fault not caught: loss gaps "
                            f"{old_gap} within {ELASTIC_LOSS_TOL}")
     r0 = [r for r in recs if r["rank"] == 0][0]
-    by_n = {}                   # a stage's first step holds its resize
-    for s in r0["steps"]:
-        if s["step"] not in (0, 3, 6):
-            by_n.setdefault(s["n"], []).append(s["seconds"])
     return {
         "schedule": ELASTIC_SCHEDULE, "backend": "gloo",
         "layers": ELASTIC_LAYERS,
@@ -2720,7 +2795,7 @@ def phase_elastic_gpt_470m(device) -> dict:
                        "received_bytes": r["received_bytes"]}
                       for r in recs if r["join_version"] > min(
                           x["join_version"] for x in recs)],
-        "step_seconds_by_ranks": by_n,
+        "step_seconds_by_ranks": _step_seconds_by_ranks(r0),
         "peak_memory_gb": {f"r{r['rank']}_v{r['join_version']}":
                            r["peak_memory_gb"] for r in recs},
         "trained_samples": samples, "checks": len(
@@ -2732,6 +2807,330 @@ def phase_elastic_gpt_470m(device) -> dict:
         "note": "step times: gloo stages every all-reduce of a CUDA tensor "
                 "through the host (the ranks share one card); the first "
                 "step of each stage holds its resize"}
+
+
+# ---------------------------------------- phase 13: failure recovery
+# three ranks on the card (gloo), a commit at every step; A: rank 2 is
+# killed inside its gradient all-reduce of step 3; B: rank 0 is killed on
+# its committer thread after the join of the commit of step 5 and before
+# its publish (the new rank 0 is the old rank 1); C, planted: A's kill,
+# and the survivors restore the previous commit's state with the newest
+# commit's counters (trained_samples right, the trajectory wrong)
+RECOVER_RANKS = 3
+# steps cut from the 9 global batches, and C run beside B: with 9, 9 and
+# 6 steps one after another the phase took 166 s on the H100, with 6, 7
+# and 4 157 s, against its 150 s budget (PERF.md)
+RECOVER_JOBS = {
+    "A": {"victim": 2, "act": "kill_allreduce", "at": 3, "steps": 6},
+    "B": {"victim": 0, "act": "kill_commit", "at": 5, "steps": 7},
+    "C": {"victim": 2, "act": "kill_allreduce", "at": 3,
+          "fault": "stale_state", "steps": 4},
+}
+# a collective that waits longer than this on a peer raises (the largest,
+# the 1.0 GB gradient all-reduce staged through the host, takes ~1 s)
+RECOVER_COLLECTIVE_S = 120.0
+
+
+def elastic_recover_worker() -> None:
+    """One rank of ``elastic_recover_470m``, started by the port's watcher
+    (``python -c "import chip_smoke as S; S.elastic_recover_worker()"``
+    with the worker flags): the 470m GPT under DistributedElasticTrainer
+    (gloo, CUDA tensors, a commit at every step), the kill or the fault of
+    ``--job`` planted here; bit-for-bit checks of the replicas after each
+    recovery and at the end; one JSON record of its run, and one line a
+    commit published (or a kill) in ``events.<rank>.jsonl``."""
+    import argparse
+    import signal
+    import kungfu_tpu_torch as kft
+    from kungfu_tpu_torch.elastic import DistributedElasticTrainer
+    from kungfu_tpu_torch.launcher import env as E
+    from kungfu_tpu_torch.optimizers import sync_sgd as SS
+    ap = argparse.ArgumentParser()
+    E.add_args(ap)
+    ap.add_argument("--out", default="")
+    ap.add_argument("--job", default="A")
+    ns = ap.parse_args(sys.argv[1:])
+    we = E.install(E.from_args(ns))
+    rank0 = we.rank()
+    job = RECOVER_JOBS[ns.job]
+    steps = job["steps"]
+    victim = rank0 == job["victim"] and we.cluster_version == 1
+    device = resolve_device("cuda")
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    args = elastic_args()
+    cfg = BG.make_config(args)
+    params = G.init_params(torch.Generator(device=device).manual_seed(rank0),
+                           cfg)
+    lock = threading.Lock()
+
+    def note(kind, **kw):
+        with lock, open(os.path.join(ns.out, f"events.{rank0}.jsonl"),
+                        "a") as f:
+            f.write(json.dumps({"kind": kind, "rank0": rank0, **kw}) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+
+    def die():
+        note("kill", time=time.time(),
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    trainer = None
+    real_mean = SS.cross_replica_mean_gradients
+
+    def mean_then_die(grads, group=None, fusion=False):
+        # the all-reduce runs on a thread; the rank dies 50 ms into it
+        if (victim and job["act"] == "kill_allreduce"
+                and trainer.step_count == job["at"]):
+            threading.Thread(target=real_mean, args=(grads, group, fusion),
+                             daemon=True).start()
+            time.sleep(0.05)
+            die()
+        return real_mean(grads, group, fusion)
+    SS.cross_replica_mean_gradients = mean_then_die
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = DistributedElasticTrainer(
+        BG.make_loss_fn(args, cfg), elastic_optimizer, params,
+        backend="gloo", compute_dtype=cfg.dtype, microbatch=1,
+        snapshot_every=1, collective_timeout_s=RECOVER_COLLECTIVE_S)
+    rec = {"rank": rank0, "job": ns.job, "construct_s":
+           time.perf_counter() - t0, "steps": [], "checks": []}
+    previous = [None]
+    real_publish = trainer._publish
+
+    def publish(host, devices, progress):
+        if (victim and job["act"] == "kill_commit"
+                and progress[1] == job["at"]):
+            die()                        # joined, not published
+        previous[0] = trainer._committed
+        real_publish(host, devices, progress)
+        ps = trainer._committer.last
+        note("commit", pair=list(progress), dispatch_s=ps.dispatch_s,
+             join_s=ps.join_s, nbytes=ps.nbytes, time=time.time())
+    trainer._publish = publish
+    if job.get("fault") == "stale_state":
+        trainer._committed_record = lambda: (*previous[0][:2],
+                                             trainer._committed[2])
+    for name in FA.launches:
+        FA.launches[name] = 0
+    microbatches = 0
+    while trainer.step_count < steps:
+        i = trainer.step_count
+        if victim and job["act"] == "kill_commit" and i == job["at"]:
+            time.sleep(300)              # the committer thread kills it
+        seen = len(trainer.recoveries)
+        t0 = time.perf_counter()
+        loss = trainer.step(elastic_batch(i, device))
+        if loss is None:
+            break
+        recovered = len(trainer.recoveries) > seen
+        rec["steps"].append({"batch": i, "step": trainer.step_count,
+                             "n": trainer.n, "loss": loss,
+                             "seconds": time.perf_counter() - t0,
+                             "recovered": recovered})
+        microbatches += ELASTIC_ROWS // trainer.n
+        if recovered:
+            rec["checks"].append({"at": "recovery",
+                                  **elastic_checksums(trainer)})
+    rec["detached"] = kft.detached()
+    if not rec["detached"]:
+        rec["checks"].append({"at": "end", **elastic_checksums(trainer)})
+        rec.update(trained_samples=trainer.trained_samples,
+                   version=trainer.version, size=trainer.n)
+    rec.update(recoveries=trainer.recoveries, launches=dict(FA.launches),
+               microbatches=microbatches,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    with open(os.path.join(ns.out, f"r{rank0}.json"), "w") as f:
+        json.dump(rec, f)
+    trainer.shutdown()
+
+
+def recover_job(name: str, tmp: str, timeout: float = 300) -> dict:
+    """Run job ``name`` of ``RECOVER_JOBS`` through the port's config
+    server and watcher: the survivors' records, every rank's events, the
+    watcher's exclusions and exit codes."""
+    from kungfu_tpu_torch.elastic import ConfigServer
+    from kungfu_tpu_torch.launcher import env as E
+    from kungfu_tpu_torch.launcher.watch import watch_run
+    from kungfu_tpu_torch.plan import Cluster, HostList
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    server = ConfigServer().start()
+    here = os.path.dirname(os.path.abspath(__file__))
+    exclusions = []
+    t0 = time.perf_counter()
+    try:
+        server.put_cluster(Cluster.from_hostlist(
+            HostList.parse("127.0.0.1:4"), RECOVER_RANKS))
+
+        def argv_for(rank, cluster, version):
+            return [sys.executable, "-c",
+                    "import chip_smoke as S; S.elastic_recover_worker()",
+                    "--out", out, "--job", name,
+                    *E.worker_argv(rank, cluster.workers, version,
+                                   server.url,
+                                   os.path.join(tmp, "rdzv_" + name))]
+        exits = watch_run(server, argv_for, out,
+                          env=dict(os.environ, PYTHONPATH=here), cwd=here,
+                          timeout=timeout, exclusions=exclusions)
+        version, cluster = server.get_cluster()
+    finally:
+        server.stop()
+    recs, events = [], []
+    for fn in sorted(os.listdir(out)):
+        with open(os.path.join(out, fn)) as f:
+            if fn.endswith(".json"):
+                recs.append(json.load(f))
+            elif fn.endswith(".jsonl"):
+                events += [json.loads(ln) for ln in f.read().splitlines()]
+    return {"recs": recs, "events": events, "exits": exits,
+            "exclusions": exclusions, "server_version": version,
+            "server_size": cluster.size(),
+            "wall_s": time.perf_counter() - t0}
+
+
+def _effective(rec) -> list:
+    """The steps that stand, by step count: a step a restore rewound is
+    replaced by the one trained at its count later."""
+    by_step = {s["step"]: s for s in rec["steps"]}
+    return [by_step[k] for k in sorted(by_step)]
+
+
+def recover_readings(res: dict, ref_losses) -> dict:
+    """What a job's run shows: the survivors' losses against one process,
+    the recovery's timeline from the kill, the commits, the steps/s."""
+    alive = [r for r in res["recs"] if not r["detached"]]
+    first = min(alive, key=lambda r: r["recoveries"][0]["rank"]
+                if r["recoveries"] else 0)
+    eff = _effective(first)
+    gaps = [abs(s["loss"] - ref_losses[s["batch"]]) for s in eff]
+    kill = [e["time"] for e in res["events"] if e["kind"] == "kill"]
+    commits = [e for e in res["events"] if e["kind"] == "commit"]
+    rcv = first["recoveries"][0] if first["recoveries"] else None
+    timeline = None
+    if rcv is not None and kill and res["exclusions"]:
+        k = kill[0]
+        timeline = {"kill_to_error_s": rcv["t_error"] - k,
+                    "kill_to_exclusion_s": res["exclusions"][0]["time"] - k,
+                    "kill_to_version_seen_s": rcv["t_version"] - k,
+                    "kill_to_reformed_s": rcv["t_reformed"] - k,
+                    "kill_to_restored_s": rcv["t_restored"] - k,
+                    "kill_to_first_step_s": rcv["t_step"] - k}
+    by_n = {}
+    for s in first["steps"]:
+        if s["step"] > 1 and not s["recovered"]:
+            by_n.setdefault(s["n"], []).append(s["seconds"])
+    warm = [c for c in commits if c["pair"][1] > 1]
+    return {
+        "sequence": [[s["n"], s["batch"]] for s in eff],
+        "losses": [s["loss"] for s in eff], "loss_gaps": gaps,
+        "max_loss_gap": max(gaps), "timeline": timeline,
+        "recovery": rcv and {k: rcv[k] for k in (
+            "cause", "from_version", "from_size", "version", "size",
+            "restored", "rewound", "restore_bytes")},
+        "restore_bytes": {r["rank"]: r["recoveries"][0]["restore_bytes"]
+                          for r in alive if r["recoveries"]},
+        "commit_dispatch_s": statistics.median(
+            c["dispatch_s"] for c in warm) if warm else None,
+        "commit_join_s": statistics.median(
+            c["join_s"] for c in warm) if warm else None,
+        "commit_bytes": warm[0]["nbytes"] if warm else None,
+        "steps_per_s": {n: len(v) / sum(v) for n, v in by_n.items()},
+        "step_seconds": by_n,
+        "construct_s": {r["rank"]: r["construct_s"] for r in res["recs"]},
+        "launches": {r["rank"]: r["launches"] for r in alive},
+        "peak_memory_gb": {**{f"r{e['rank0']}_killed": e["peak_memory_gb"]
+                              for e in res["events"] if e["kind"] == "kill"},
+                           **{f"r{r['rank']}": r["peak_memory_gb"]
+                              for r in res["recs"]}},
+        "exits": res["exits"], "exclusions": res["exclusions"],
+        "wall_s": res["wall_s"]}
+
+
+def recover_gates(name: str, res: dict, read: dict) -> None:
+    """Jobs A and B: one exclusion; the survivors at one (version, size);
+    replicas and Adam moments bit for bit equal after the recovery and at
+    the end; the restored pair one that a rank published; every step
+    counted once; every step's loss within ELASTIC_LOSS_TOL of one
+    process; K1-K4 at every layer of every microbatch."""
+    job = RECOVER_JOBS[name]
+    steps = job["steps"]
+    alive = [r for r in res["recs"] if not r["detached"]]
+    if len(res["exclusions"]) != 1:
+        raise RuntimeError(f"{name}: exclusions {res['exclusions']}")
+    if len(alive) != RECOVER_RANKS - 1 or {
+            (r["version"], r["size"]) for r in alive} != {
+            (res["server_version"], RECOVER_RANKS - 1)}:
+        raise RuntimeError(f"{name}: survivors {[(r['rank'], r.get('version'), r.get('size')) for r in alive]}")
+    bad = _elastic_bad_checks(alive)
+    if bad or sorted(c["at"] for r in alive for c in r["checks"]) != [
+            "end", "end", "recovery", "recovery"]:
+        raise RuntimeError(f"{name}: replicas differ (rank, at, params, "
+                           f"moments): {bad}")
+    published = {tuple(e["pair"]) for e in res["events"]
+                 if e["kind"] == "commit"}
+    for r in alive:
+        if [tuple(x["restored"]) for x in r["recoveries"]] != [
+                (ELASTIC_ROWS * job["at"], job["at"])] or not {
+                tuple(x["restored"]) for x in r["recoveries"]} <= published:
+            raise RuntimeError(f"{name}: rank {r['rank']} restored "
+                               f"{[x['restored'] for x in r['recoveries']]}"
+                               f", published {sorted(published)}")
+        if r["trained_samples"] != steps * ELASTIC_ROWS:
+            raise RuntimeError(f"{name}: trained samples "
+                               f"{r['trained_samples']}")
+        need = ELASTIC_LAYERS * r["microbatches"]
+        short = {k: v for k, v in r["launches"].items() if v < need}
+        if short:
+            raise RuntimeError(f"{name}: rank {r['rank']}: flash kernels "
+                               f"launched {short}, needed {need}")
+    want = [[RECOVER_RANKS if b < job["at"] else RECOVER_RANKS - 1, b]
+            for b in range(steps)]
+    if read["sequence"] != want:
+        raise RuntimeError(f"{name}: steps {read['sequence']}, want {want}")
+    if read["max_loss_gap"] > ELASTIC_LOSS_TOL:
+        raise RuntimeError(f"{name}: losses apart from one process by "
+                           f"{read['loss_gaps']} (limit {ELASTIC_LOSS_TOL})")
+
+
+def phase_elastic_recover_470m(device, ref: dict) -> dict:
+    """Failure recovery of the 470m GPT on the card (see
+    :func:`elastic_recover_worker`): jobs A and B held to their gates and
+    to one process over the same batches (``elastic_reference``'s run),
+    then the planted fault C caught by the loss gate."""
+    from concurrent.futures import ThreadPoolExecutor
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = {"A": recover_job("A", tmp)}
+        # C (the planted fault) runs beside B, for the budget: B's
+        # timings carry C's load, A's are the phase's clean ones
+        with ThreadPoolExecutor(2) as pool:
+            jobs = {n: pool.submit(recover_job, n, tmp) for n in "BC"}
+            got.update({n: f.result() for n, f in jobs.items()})
+    wall = time.perf_counter() - t0
+    out = {}
+    for name, res in got.items():
+        out[name] = read = recover_readings(res, ref["losses"])
+        if name != "C":
+            recover_gates(name, res, read)
+    c = out["C"]
+    c["loss_tol"] = ELASTIC_LOSS_TOL
+    c["excess_over_limit"] = c["max_loss_gap"] - ELASTIC_LOSS_TOL
+    if c["max_loss_gap"] <= ELASTIC_LOSS_TOL:
+        raise RuntimeError(f"C: the stale restore was not caught: loss gaps "
+                           f"{c['loss_gaps']} within {ELASTIC_LOSS_TOL}")
+    return {"ranks": RECOVER_RANKS, "layers": ELASTIC_LAYERS,
+            "steps": {k: j["steps"] for k, j in RECOVER_JOBS.items()},
+            "backend": "gloo",
+            "snapshot_every": 1, "loss_tol": ELASTIC_LOSS_TOL,
+            "jobs": out, "reference_losses": ref["losses"],
+            "wall_s": wall,
+            "note": "C ran beside B; timeline in seconds of the wall clock "
+                    "from the kill (the victim's note); restore_bytes 0: "
+                    "the survivor restored its own pinned commit"}
 
 
 def phase_elastic_nccl_reinit(device) -> dict:
@@ -2830,6 +3229,10 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    if sys.argv[1:] == ["--commit-cost"]:
+        emit({"phase": "elastic_commit_cost",
+              **phase_elastic_commit_cost(device)})
+        return 0
 
     k5_errs = phase_kernel(device)
     emit({"phase": "k5_faults", **phase_k5_faults(device)})
@@ -2901,7 +3304,12 @@ def main() -> int:
     emit({"phase": "convergence_bert", **phase_convergence_bert(device)})
     emit({"phase": "elastic_nccl_reinit",
           **phase_elastic_nccl_reinit(device)})
-    emit({"phase": "elastic_gpt_470m", **phase_elastic_gpt_470m(device)})
+    torch.cuda.empty_cache()
+    ref = elastic_reference(device)
+    emit({"phase": "elastic_gpt_470m",
+          **phase_elastic_gpt_470m(device, ref)})
+    emit({"phase": "elastic_recover_470m",
+          **phase_elastic_recover_470m(device, ref)})
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
 
     print(BG.device_name(device), flush=True)

@@ -19,11 +19,19 @@ where it lies.  State moves over the group itself
 before it holds the model.  The backend defaults to NCCL on CUDA and gloo
 otherwise; NCCL refuses two ranks on one card, so several ranks sharing a
 card pass ``backend="gloo"`` (gloo stages CUDA tensors through the host).
+
+A member that died or hung leaves the group broken: :func:`abort` leaves
+it locally, whatever state it is in, so a survivor can re-form at the
+version that excludes the dead member.  Collectives wait at most the
+``timeout_s`` the group was formed with, so a survivor stuck on a peer
+that hangs fails within it rather than waiting forever.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
+import importlib
 import math
 import os
 import threading
@@ -37,6 +45,9 @@ from .utils.tree import tree_leaves, tree_map
 
 _COORD_PORT_OFFSET = 1000
 _VERSION_WRAP = 20000
+# the default collective timeout, and the least time a rendezvous waits
+# for every member (a newcomer's start takes seconds on the card)
+DEFAULT_TIMEOUT_S = 600.0
 
 # (version, backend, world size, rank, TCP rendezvous?) of the live group,
 # None when down
@@ -75,11 +86,15 @@ def is_initialized() -> bool:
 def initialize(peers: Sequence, rank: int, cluster_version: int = 0,
                rendezvous: Optional[str] = None,
                backend: Optional[str] = None,
-               timeout_s: float = 600.0) -> None:
+               timeout_s: float = DEFAULT_TIMEOUT_S,
+               rendezvous_timeout_s: Optional[float] = None) -> None:
     """Join the version-``cluster_version`` data group as ``rank`` of
     ``len(peers)``.  Every member calls it with the same peers, version
-    and rendezvous; it returns once all of them have met.  ``backend``:
-    None picks NCCL when CUDA is available, else gloo."""
+    and rendezvous; it returns once all of them have met, or raises after
+    ``rendezvous_timeout_s`` (None: the larger of ``timeout_s`` and
+    :data:`DEFAULT_TIMEOUT_S`).  A collective of the group raises after
+    ``timeout_s``.  ``backend``: None picks NCCL when CUDA is available,
+    else gloo."""
     global _live
     n = len(_norm_peers(peers))
     if backend is None:
@@ -90,7 +105,15 @@ def initialize(peers: Sequence, rank: int, cluster_version: int = 0,
         raise RuntimeError(
             f"data group live at version {_live[0]}; call reinit() (or "
             f"shutdown() first) to move to version {cluster_version}")
-    timeout = datetime.timedelta(seconds=timeout_s)
+    # torch.distributed.nn's functions take ``group.WORLD`` as a default
+    # argument, evaluated when it is imported (by torch._dynamo, which the
+    # first optimizer step imports): imported while a group is live, it
+    # would hold that group, and its sockets, for the life of the process,
+    # and abort() could not close them.  Import it while none is.
+    importlib.import_module("torch.distributed.nn")
+    if rendezvous_timeout_s is None:
+        rendezvous_timeout_s = max(timeout_s, DEFAULT_TIMEOUT_S)
+    timeout = datetime.timedelta(seconds=rendezvous_timeout_s)
     if rendezvous is not None:
         os.makedirs(rendezvous, exist_ok=True)
         store = dist.FileStore(os.path.join(rendezvous,
@@ -102,6 +125,9 @@ def initialize(peers: Sequence, rank: int, cluster_version: int = 0,
                               timeout=timeout)
     dist.init_process_group(backend, store=store, rank=rank, world_size=n,
                             timeout=timeout)
+    if rendezvous_timeout_s != timeout_s:
+        dist.distributed_c10d._set_pg_timeout(
+            datetime.timedelta(seconds=timeout_s))
     _live = (int(cluster_version), backend, n, rank, rendezvous is None)
 
 
@@ -114,15 +140,38 @@ def shutdown() -> None:
     _live = None
 
 
+def abort() -> None:
+    """Leave a broken data group (local: no collective, whatever state the
+    group is in).  gloo: the group is destroyed, which closes its sockets,
+    so a member still waiting on this one gets an error at once instead
+    of waiting out its timeout; the caller must hold no reference to the
+    group (an exception's traceback holds the frames of the collective
+    that raised: clear them first, ``traceback.clear_frames``).  NCCL: the
+    communicators are aborted first (``_abort_process_group``), which
+    ends kernels stuck on a dead peer; proven on one card only at a world
+    of one."""
+    global _live
+    if _live is None:
+        return
+    if _live[1] == "nccl":
+        dist.distributed_c10d._abort_process_group()
+    else:
+        dist.destroy_process_group()
+    _live = None
+    gc.collect()
+
+
 def reinit(peers: Sequence, rank: int, cluster_version: int,
            rendezvous: Optional[str] = None,
-           backend: Optional[str] = None) -> bool:
+           backend: Optional[str] = None,
+           timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
     """Move the data group to a new cluster version: leave the old one
-    and join the new.  Returns True when a rebuild happened."""
+    and join the new (``timeout_s`` as in :func:`initialize`).  Returns
+    True when a rebuild happened."""
     if _live is not None and _live[0] == cluster_version:
         return False
     shutdown()
-    initialize(peers, rank, cluster_version, rendezvous, backend)
+    initialize(peers, rank, cluster_version, rendezvous, backend, timeout_s)
     return True
 
 

@@ -11,6 +11,12 @@ protocol).
   when the server moved on.
 - ``DELETE /config`` clears the config and still bumps the version, so a
   CAS holding a version from before the clear cannot win across it.
+- ``POST /heartbeat`` <- ``{"peer", "rank", "step", "version"}``: a
+  worker renews its liveness lease (400 without ``peer``); leases not
+  renewed for ``LEASE_PRUNE_S`` are dropped at the next renewal.
+- ``GET /health`` -> ``{"version", "leases": {peer: {"age_s", "rank",
+  "step", "version", "beats"}}, "epoch"}``: the ages the watcher turns
+  into exclusions of hung workers.
 - ``GET /stop`` shuts the server down.
 
 ``epoch`` is 48 random bits drawn when the server starts: a client that
@@ -18,8 +24,7 @@ sees it change knows the version counter restarted.  The bodies are
 byte for byte those of the JAX server, so either package's client talks
 to either server.  A caller in the server's process may also
 :meth:`ConfigServer.subscribe` to every change.  Not here: the
-write-ahead log, ``/heartbeat``, ``/health``, ``/history`` and the
-client's circuit breaker.
+write-ahead log, ``/history`` and the client's circuit breaker.
 """
 from __future__ import annotations
 
@@ -31,13 +36,16 @@ import time
 import urllib.error
 import urllib.request
 from http.server import BaseHTTPRequestHandler
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..plan.cluster import Cluster
 from ..utils.http import BackgroundHTTPServer
 
 BACKOFF_BASE_S = 0.05
 BACKOFF_CAP_S = 1.0
+# a lease this stale belongs to a long-gone worker: pruned at the next
+# renewal, so the table holds recent peers only
+LEASE_PRUNE_S = 600.0
 
 
 class _State:
@@ -47,6 +55,7 @@ class _State:
         self.cluster: Optional[Cluster] = None
         self.epoch = int.from_bytes(os.urandom(6), "big")
         self.listeners: List[Callable[[int, Optional[Cluster]], None]] = []
+        self.leases: Dict[str, dict] = {}
 
     def record(self, cluster: Optional[Cluster]) -> int:
         """Bump the version, install ``cluster`` (None clears) and tell
@@ -76,6 +85,9 @@ def _make_handler(state: _State, server_ref):
                 self._send(200, b'{"ok": true}')
                 server_ref.shutdown_async()
                 return
+            if self.path.startswith("/health"):
+                self._health()
+                return
             with state.lock:
                 if state.cluster is None:
                     body = json.dumps({"error": "no config",
@@ -89,6 +101,49 @@ def _make_handler(state: _State, server_ref):
                         "epoch": state.epoch}).encode()
                     code = 200
             self._send(code, body)
+
+        def _health(self):
+            now = time.monotonic()
+            with state.lock:
+                leases = {
+                    peer: {"age_s": round(now - d["mono"], 3),
+                           "rank": d.get("rank"), "step": d.get("step"),
+                           "version": d.get("version"),
+                           "beats": d.get("beats", 0)}
+                    for peer, d in state.leases.items()}
+                body = json.dumps({"version": state.version,
+                                   "leases": leases,
+                                   "epoch": state.epoch}).encode()
+            self._send(200, body)
+
+        def _heartbeat(self):
+            n = int(self.headers.get("Content-Length", "0"))
+            try:
+                d = json.loads(self.rfile.read(n).decode())
+                peer = str(d["peer"])
+            except (ValueError, KeyError) as e:
+                self._send(400, json.dumps(
+                    {"error": f"bad heartbeat: {e}"}).encode())
+                return
+            now = time.monotonic()
+            with state.lock:
+                prev = state.leases.get(peer)
+                state.leases[peer] = {
+                    "mono": now, "rank": d.get("rank"),
+                    "step": d.get("step"), "version": d.get("version"),
+                    "beats": prev["beats"] + 1 if prev else 1}
+                for p in [p for p, lease in state.leases.items()
+                          if now - lease["mono"] > LEASE_PRUNE_S]:
+                    del state.leases[p]
+                body = json.dumps({"ok": True,
+                                   "epoch": state.epoch}).encode()
+            self._send(200, body)
+
+        def do_POST(self):
+            if self.path.startswith("/heartbeat"):
+                self._heartbeat()
+            else:
+                self.do_PUT()
 
         def do_PUT(self):
             n = int(self.headers.get("Content-Length", "0"))
@@ -116,8 +171,6 @@ def _make_handler(state: _State, server_ref):
                     code, body = 200, {"version": state.record(c),
                                        "epoch": state.epoch}
             self._send(code, json.dumps(body).encode())
-
-        do_POST = do_PUT
 
         def do_DELETE(self):
             with state.lock:
@@ -238,3 +291,19 @@ def put_config(url: str, cluster: Cluster, timeout: float = 5.0,
     return _call(url, lambda raw: json.loads(raw.decode())["version"],
                  method="PUT", body=cluster.to_json().encode(),
                  headers=headers, timeout=timeout, deadline=deadline)
+
+
+def health_url(url: str, path: str) -> str:
+    """A sibling endpoint (``/health``, ``/heartbeat``) of the server whose
+    ``/config`` URL is ``url``."""
+    if url.endswith("/config"):
+        return url[: -len("/config")] + path
+    return url.rstrip("/") + path
+
+
+def fetch_health(url: str, timeout: float = 2.0) -> dict:
+    """GET the lease table from the server's ``/health`` (``url`` may be
+    its ``/config`` URL): ``{"version", "leases": {peer: {"age_s", ...}},
+    "epoch"}``.  One attempt."""
+    return _call(health_url(url, "/health"),
+                 lambda raw: json.loads(raw.decode()), timeout=timeout)

@@ -66,7 +66,9 @@ class ElasticTrainer:
     ``rank`` among them.  ``version`` is the cluster version to join: 0
     for a fresh job, the resize's new version for a newcomer.
     ``rendezvous`` (a directory) and ``backend`` as in
-    :func:`kungfu_tpu_torch.distributed.initialize`.  ``compute_dtype`` as
+    :func:`kungfu_tpu_torch.distributed.initialize`, whose ``timeout_s``
+    is ``collective_timeout_s``: a collective stuck on a peer that hangs
+    raises after it.  ``compute_dtype`` as
     in ``build_train_step``; ``microbatch`` splits each rank's block into
     microbatches of that many rows (gradients accumulated), whatever the
     block's size at the current cluster size.
@@ -80,7 +82,8 @@ class ElasticTrainer:
                  config_server_url: Optional[str] = None,
                  max_size: Optional[int] = None, init_model_state=None,
                  compute_dtype: Optional[torch.dtype] = None,
-                 microbatch: Optional[int] = None):
+                 microbatch: Optional[int] = None,
+                 collective_timeout_s: float = D.DEFAULT_TIMEOUT_S):
         self.loss_fn = loss_fn
         self.optimizer_factory = optimizer_factory
         self.config_server_url = config_server_url
@@ -94,6 +97,7 @@ class ElasticTrainer:
         self.backend = backend
         self.compute_dtype = compute_dtype
         self.microbatch = microbatch
+        self.collective_timeout_s = collective_timeout_s
         self.config_version = -1
         self.trained_samples = 0
         self.step_count = 0
@@ -107,7 +111,8 @@ class ElasticTrainer:
         self.optimizer: Optional[torch.optim.Optimizer] = None
         _flags.set_detached(False)
         _flags.set_cluster_version(version)
-        D.initialize(self.peers, rank, version, rendezvous, backend)
+        D.initialize(self.peers, rank, version, rendezvous, backend,
+                     collective_timeout_s)
         self.session = Session(None, version)
         self._install(self._sync_state(None))
 
@@ -192,7 +197,7 @@ class ElasticTrainer:
         self.peers, self.n = new_peers, len(new_peers)
         self.rank = new_peers.rank(me)
         D.reinit(new_peers, self.rank, new_version, self.rendezvous,
-                 self.backend)
+                 self.backend, self.collective_timeout_s)
         newcomers = [r for r, p in enumerate(new_peers)
                      if p not in old_peers]
         got = self._sync_state(newcomers)
@@ -212,9 +217,7 @@ class ElasticTrainer:
             meta[0] = {
                 "newcomers": (list(range(1, self.n)) if fresh
                               else newcomers),
-                "fresh": fresh, "step_count": self.step_count,
-                "trained_samples": self.trained_samples,
-                "config_version": self.config_version}
+                "fresh": fresh, "progress": self._progress_meta()}
         dist.broadcast_object_list(meta, src=0)
         meta = meta[0]
         if meta["fresh"] and not fresh:
@@ -232,11 +235,20 @@ class ElasticTrainer:
                 if group is not None:
                     dist.destroy_process_group(group)
         if self.rank in receivers:
-            self.step_count = meta["step_count"]
-            self.trained_samples = meta["trained_samples"]
-            self.config_version = meta["config_version"]
+            self._adopt_progress(meta["progress"])
         self.sync_progress()
         return got
+
+    def _progress_meta(self) -> dict:
+        """What a receiver of rank 0's state adopts besides the tensors."""
+        return {"step_count": self.step_count,
+                "trained_samples": self.trained_samples,
+                "config_version": self.config_version}
+
+    def _adopt_progress(self, meta: dict) -> None:
+        self.step_count = meta["step_count"]
+        self.trained_samples = meta["trained_samples"]
+        self.config_version = meta["config_version"]
 
     def _broadcast_state(self, group) -> Optional[dict]:
         """Rank 0's params, model state and optimizer state over ``group``

@@ -7,7 +7,7 @@ passes it as command-line flags, which the worker parses with
 (``kungfu_tpu_torch.init``)::
 
     --kf-rank R --kf-peers h:p:s,h:p:s,... --kf-version V
-    [--kf-config-server URL] [--kf-rendezvous DIR]
+    [--kf-config-server URL] [--kf-rendezvous DIR] [--kf-heartbeat-s S]
 
 A process given none of them is a singleton (one rank, no cluster).
 """
@@ -27,6 +27,8 @@ class WorkerEnv:
     cluster_version: int = 0
     config_server: Optional[str] = None
     rendezvous: Optional[str] = None
+    # seconds between liveness-lease renewals (0: none)
+    heartbeat_s: float = 2.0
 
     @property
     def singleton(self) -> bool:
@@ -56,6 +58,9 @@ def add_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--kf-rendezvous", default=None,
                     help="a directory for the versioned FileStore "
                          "rendezvous (default: a TCPStore on peer 0)")
+    ap.add_argument("--kf-heartbeat-s", type=float, default=2.0,
+                    help="seconds between the liveness-lease renewals a "
+                         "trainer sends the config server (0: none)")
 
 
 def from_args(ns) -> WorkerEnv:
@@ -64,7 +69,8 @@ def from_args(ns) -> WorkerEnv:
         return SINGLETON
     peers = PeerList.parse(ns.kf_peers)
     return WorkerEnv(peers[ns.kf_rank], peers, ns.kf_version,
-                     ns.kf_config_server, ns.kf_rendezvous)
+                     ns.kf_config_server, ns.kf_rendezvous,
+                     ns.kf_heartbeat_s)
 
 
 def parse(argv: Sequence[str]) -> WorkerEnv:
@@ -77,7 +83,8 @@ def parse(argv: Sequence[str]) -> WorkerEnv:
 
 def worker_argv(rank: int, peers: PeerList, version: int,
                 config_server: Optional[str] = None,
-                rendezvous: Optional[str] = None) -> List[str]:
+                rendezvous: Optional[str] = None,
+                heartbeat_s: Optional[float] = None) -> List[str]:
     """The flags describing worker ``rank`` of ``peers``."""
     argv = ["--kf-rank", str(rank), "--kf-peers", peers.to_string(),
             "--kf-version", str(version)]
@@ -85,6 +92,8 @@ def worker_argv(rank: int, peers: PeerList, version: int,
         argv += ["--kf-config-server", config_server]
     if rendezvous:
         argv += ["--kf-rendezvous", rendezvous]
+    if heartbeat_s is not None:
+        argv += ["--kf-heartbeat-s", str(heartbeat_s)]
     return argv
 
 
