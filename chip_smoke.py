@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --commit-cost
+    python3 chip_smoke.py --parallel
 
 With no arguments:
 
@@ -120,11 +121,29 @@ With no arguments:
    loss limit must catch; each recovery's
    timeline from the kill, the bytes the restore moved, the commits'
    dispatch and join, the steps/s at 3 and 2 ranks and every rank's peak
-   memory (``elastic_recover_470m``).
+   memory (``elastic_recover_470m``);
+14. trains the 470m GPT through ``parallel.threed.make_gpt_train_step``
+   in 4 gloo ranks sharing the card: job A at (dp, sp, tp) = (1, 2, 2),
+   full width and depth, ring-flash attention (K1-K4 on every chunk of
+   every layer; the ring's chunk shapes are also FLASH_CASES y and z), 2
+   sequences of 4096 tokens a step, one SGD step and two AdamW steps; job
+   B at (2, 2, 1), 4 layers, Ulysses; each against one process with
+   flash attention on the same weights, batch and optimizers: every
+   rank's SGD gradient per tensor and every step's loss within their
+   limits, K1-K4 launched exactly as the ring's schedule issues them,
+   planted faults above the gradient limit (in A: no future mask in the
+   ring-flash merge, replicated gradients summed over tp once more, RoPE
+   without the sp offset; in B: the all-to-all joining its blocks in
+   reverse rank order); step seconds, the collectives' share (each
+   collective timed between two synchronizes) and bytes by kind, every
+   rank's peak memory (``parallel_gpt_470m``).
 
 Each phase prints a JSON line.  The last two lines are the kernels record
 and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; so
 does a machine without a CUDA device.  Imports nothing of JAX.
+
+``--parallel`` builds the kernels, prints the card, checks FLASH_CASES y
+and z and runs only ``parallel_gpt_470m``.
 
 ``--commit-cost`` builds the kernels, prints the card, and runs only
 ``elastic_gpt_470m``'s sound schedule four times, with a commit at every
@@ -940,7 +959,16 @@ FLASH_CASES = {
     "w_bf16_d64_causal_t257": (1, 257, 257, 8, 4, 64, True, "bf16", False),
     "x_bf16_d128_causal_t257": (1, 257, 257, 4, 1, 128, True, "bf16",
                                 False),
+    # the ring-flash chunks of parallel_gpt_470m's job A (sp 2 x tp 2: a
+    # rank's 2048 tokens, 8 heads, 2 KV heads), whose lse the merge
+    # differentiates: a past chunk and the causal diagonal
+    "y_bf16_ring_chunk_full_dlse": (2, 2048, 2048, 8, 2, 64, False, "bf16",
+                                    True),
+    "z_bf16_ring_diag_causal_dlse": (2, 2048, 2048, 8, 2, 64, True,
+                                     "bf16", True),
 }
+PAR_FLASH_CASES = ("y_bf16_ring_chunk_full_dlse",
+                   "z_bf16_ring_diag_causal_dlse")
 # Limits on the two errors of flash_errors.  bf16: p and ds are rounded
 # before the products and every output once; f32: summation order only.
 # lse and delta are f32 sums of the same products in both dtypes, so they
@@ -1023,10 +1051,11 @@ def flash_case(device, name: str) -> dict:
                 res["plain"])}
 
 
-def phase_flash_check(device) -> dict:
-    """Every case of FLASH_CASES within its limits."""
+def phase_flash_check(device, names=None) -> dict:
+    """Every case of FLASH_CASES (or those ``names``) within its limits."""
     errs = {}
-    for name, case in FLASH_CASES.items():
+    for name in names or FLASH_CASES:
+        case = FLASH_CASES[name]
         errs[name] = flash_case(device, name)
         emit({"phase": "flash_check", "case": name, "err": errs[name],
               "tol": FLASH_TOL[case[7]]})
@@ -3191,6 +3220,373 @@ def phase_elastic_nccl_reinit(device) -> dict:
             "device_used_bytes": used, "device_used_growth": used_growth}
 
 
+# -------------------------- phase 14: sequence and tensor parallelism
+# job -> ((dp, sp, tp), attention, layers).  A: the slice's path, the 470m
+# at full width and depth over sp 2 x tp 2 on the flash kernels; B: dp
+# and Ulysses' all-to-all (dense f32 scores [B, H/2, T, T] a layer: 4
+# layers)
+PAR_JOBS = {"A": ((1, 2, 2), "ring_flash", 24),
+            "B": ((2, 2, 1), "ulysses", 4)}
+PAR_SEQ = 4096                   # tokens a sequence (max_seq)
+PAR_ROWS = 2                     # sequences a step
+PAR_STEPS = ("sgd", "adamw", "adamw")
+PAR_SGD_LR = 1e-2
+# step 1's gradient, per tensor: ||rank's - one process's slice|| /
+# ||one process's slice||.  bf16 compute: the ranks round partial
+# products (tp) and merge the chunks' outputs in f32 (ring-flash), the
+# one process rounds whole products, and the error grows with depth: a
+# bf16 CPU rehearsal of job A at d_model 128 read 0.020, 0.036 and 0.051
+# at 2, 12 and 24 layers (wq and wk the worst), its planted faults
+# 0.85-1.92.  Set before the first run on the card (PERF.md §6)
+PAR_GRAD_TOL = 0.15
+PAR_LOSS_TOL = 2e-2              # |loss - one process's| at every step
+# job -> the faults planted in its ranks, each read by the SGD step's
+# gradient error against PAR_GRAD_TOL
+PAR_FAULTS = {"A": ("no_future_mask", "tp_twice", "rope_no_offset"),
+              "B": ("a2a_reversed",)}
+PAR_TIMEOUT_S = 120.0            # a collective that never completes
+PAR_BUDGET_S = 150.0
+
+
+def par_config(layers: int):
+    return G.GPTConfig(**dict(MODEL, n_layers=layers, max_seq=PAR_SEQ),
+                       dtype=torch.bfloat16)
+
+
+def par_batch(device):
+    """The one global batch: row r holds PAR_SEQ + 1 seeded ids below
+    2^(8 + 7r) (256 and the whole vocabulary)."""
+    rng = np.random.RandomState(2026)
+    rows = np.stack([rng.randint(0, 2 ** (8 + 7 * r), PAR_SEQ + 1)
+                     for r in range(PAR_ROWS)])
+    t = torch.from_numpy(rows).to(device)
+    return t[:, :-1].contiguous(), t[:, 1:].contiguous()
+
+
+def _named_leaves(tree, prefix=""):
+    """(key, leaf) in ``tree_leaves`` order, keys like "layers/0/wq"."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in _named_leaves(t, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def par_train(cfg, mesh, params, attn, steps=PAR_STEPS):
+    """``steps`` on the one batch through ``threed.make_gpt_train_step``
+    (bf16 compute over the f32 masters): SGD then AdamW.  Returns the
+    losses, the seconds of each step (ending in a fetch of the loss) and
+    the gradient the SGD step applied, as key -> tensor."""
+    from kungfu_tpu_torch.parallel import threed as T3
+    leaves = tree_leaves(params)
+    tokens, targets = par_batch(leaves[0].device)
+    grads = {}
+
+    def capture(opt, args, kwargs):
+        for (key, _), p in zip(_named_leaves(params), leaves):
+            grads[key] = p.grad.detach().clone()
+
+    sgd = torch.optim.SGD(leaves, lr=PAR_SGD_LR)
+    sgd.register_step_pre_hook(capture)
+    adamw = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999),
+                              eps=1e-8, weight_decay=1e-4)
+    make = {k: T3.make_gpt_train_step(cfg, opt, mesh, params, attn=attn,
+                                      compute_dtype=torch.bfloat16)
+            for k, opt in (("sgd", sgd), ("adamw", adamw))}
+    losses, seconds = [], []
+    for kind in steps:
+        t0 = time.perf_counter()
+        losses.append(float(make[kind](tokens, targets)))
+        seconds.append(time.perf_counter() - t0)
+    return losses, seconds, grads
+
+
+def par_oracle(device, layers: int, path: str) -> dict:
+    """One process, no group: the same model, weights, batch and
+    optimizers with ``attn="flash"`` (K1-K4) at T = PAR_SEQ.  Writes the
+    SGD step's gradient to ``path`` (bf16: the step rounds it to bf16
+    once, so nothing is lost)."""
+    from kungfu_tpu_torch.parallel import threed as T3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = par_config(layers)
+    params = T3.init_gpt(cfg, None, seed=0, device=device)
+    losses, seconds, grads = par_train(cfg, None, params, "flash")
+    torch.save({k: g.to(torch.bfloat16).cpu() for k, g in grads.items()},
+               path)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, grads
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_seconds": seconds,
+            "peak_memory_gb": peak, "wall_s": time.perf_counter() - t0}
+
+
+def _par_grad_errors(grads, ref, mesh, cfg) -> dict:
+    """key -> ||g - ref slice|| / ||ref slice|| (this rank's tp slice of
+    the one process's gradient)."""
+    specs = dict(_named_leaves(G.param_specs(cfg)))
+    tp, t = mesh.size("tp"), mesh.index("tp")
+    out = {}
+    for key, g in grads.items():
+        want = ref[key]
+        if specs[key] is not None and tp > 1:
+            want = want.chunk(tp, dim=specs[key])[t]
+        want = want.to(g.device).float()
+        out[key] = ((g.float() - want).norm()
+                    / want.norm().clamp(min=1e-30)).item()
+    return out
+
+
+def _par_worst(errs: dict, k: int = 3) -> list:
+    return sorted(errs.items(), key=lambda kv: -kv[1])[:k]
+
+
+class _CollectiveClock:
+    """Wraps the port's collectives (``comm.collectives``: ``_reduce``
+    under every all-reduce, ``ring_exchange`` under ``ppermute``,
+    ``_all_to_all``) to add up, per kind and group, the seconds between a
+    synchronize before the call and one after it, the bytes a rank sends
+    (its buffer) and the calls."""
+
+    def __init__(self, mesh):
+        from kungfu_tpu_torch.comm import collectives as C
+        self.C, self.mesh, self.stats = C, mesh, {}
+        self.saved = {n: getattr(C, n) for n in ("_reduce", "ring_exchange",
+                                                 "_all_to_all")}
+        for name, fn in self.saved.items():
+            setattr(C, name, self._wrap(name, fn))
+
+    def _axes(self, group) -> str:
+        for axes in (("tp",), ("sp",), ("dp",), ("dp", "sp")):
+            if group is self.mesh.group(*axes):
+                return ",".join(axes)
+        return "other"
+
+    def _wrap(self, name, fn):
+        kind = {"_reduce": "all_reduce", "ring_exchange": "ppermute",
+                "_all_to_all": "all_to_all"}[name]
+
+        def run(x, group, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, group, *args, **kw)
+            torch.cuda.synchronize()
+            key = f"{kind}[{self._axes(group)}]"
+            s = self.stats.setdefault(key, {"s": 0.0, "bytes": 0,
+                                            "calls": 0})
+            s["s"] += time.perf_counter() - t0
+            s["bytes"] += sum(t.numel() * t.element_size()
+                              for t in tree_leaves(x))
+            s["calls"] += 1
+            return out
+        return run
+
+    def take(self) -> dict:
+        out, self.stats = self.stats, {}
+        return out
+
+    def close(self) -> None:
+        for name, fn in self.saved.items():
+            setattr(self.C, name, fn)
+
+
+def _plant(fault: str, cfg):
+    """Plant ``fault`` by monkeypatching the port; returns the undo."""
+    import importlib
+    import torch.distributed as dist
+    from kungfu_tpu_torch.parallel import threed as T3
+    RA = importlib.import_module("kungfu_tpu_torch.parallel.ring_attention")
+    from kungfu_tpu_torch.comm import collectives as C
+    saved = (RA._is_future, T3._sync_gradients, G._global_positions,
+             C._all_to_all)
+    if fault == "no_future_mask":          # merge the future chunk too
+        RA._is_future = lambda src, rank: False
+    elif fault == "tp_twice":              # replicated grads summed over tp
+        orig = T3._sync_gradients
+        specs = [d for _, d in _named_leaves(G.param_specs(cfg))]
+
+        def sync(masters, mesh):
+            orig(masters, mesh)
+            for m, dim in zip(masters, specs):
+                if dim is None:
+                    dist.all_reduce(m.grad, group=mesh.group("tp"))
+        T3._sync_gradients = sync
+    elif fault == "rope_no_offset":        # every rank rotates by arange(T)
+        G._global_positions = lambda T, g, dev: torch.arange(T, device=dev)
+    elif fault == "a2a_reversed":          # blocks joined in reverse order
+        orig_a2a = C._all_to_all
+
+        def a2a(x, group, split_axis, concat_axis):
+            y = orig_a2a(x, group, split_axis, concat_axis)
+            n = dist.get_world_size(group)
+            return torch.cat(y.chunk(n, concat_axis)[::-1], concat_axis)
+        C._all_to_all = a2a
+    else:
+        raise ValueError(fault)
+
+    def undo():
+        (RA._is_future, T3._sync_gradients, G._global_positions,
+         C._all_to_all) = saved
+    return undo
+
+
+def parallel_gpt_worker(rank: int, world: int, tmp: str) -> None:
+    """A rank of a ``parallel_gpt_470m`` job (``tmp``/job.json): joins a
+    gloo group through the FileStore in ``tmp``, forms the (dp, sp, tp)
+    mesh, trains PAR_STEPS from the seeded weights with the collectives
+    clocked, counts K1-K4 over those steps, holds the SGD step's gradient
+    against the one process's (``tmp``/oracle.pt), and, for each planted
+    fault the job names, starts again from the same weights, plants it,
+    and reads the SGD step's gradient error.  Writes ``tmp``/r<rank>.json."""
+    from kungfu_tpu_torch.comm.mesh import init_process_group_file
+    from kungfu_tpu_torch.parallel import threed as T3
+    with open(os.path.join(tmp, "job.json")) as f:
+        job = json.load(f)
+    device = resolve_device("cuda")
+    torch.set_num_threads(2)
+    init_process_group_file(os.path.join(tmp, "store"), rank, world,
+                            "gloo", timeout_s=PAR_TIMEOUT_S)
+    mesh = T3.mesh_3d(*job["mesh"], timeout_s=PAR_TIMEOUT_S)
+    cfg = par_config(job["layers"])
+    ref = torch.load(os.path.join(tmp, "oracle.pt"), mmap=True,
+                     weights_only=True)
+    torch.cuda.reset_peak_memory_stats()
+    params = T3.init_gpt(cfg, mesh, seed=0, device=device)
+    clock = _CollectiveClock(mesh)
+    _reset_flash_counts()                 # counts from the main path only
+    try:
+        losses, seconds, grads = par_train(cfg, mesh, params, job["attn"])
+        counts = dict(FA.launches)
+        collectives = clock.take()
+    finally:
+        clock.close()
+    errs = _par_grad_errors(grads, ref, mesh, cfg)
+    rec = {"rank": rank, "coords": list(mesh.coords), "losses": losses,
+           "step_seconds": seconds, "launches": counts,
+           "collectives": collectives, "grad_err_max": max(errs.values()),
+           "grad_err_worst": _par_worst(errs),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "faults": {}}
+    del params, grads
+    for fault in job["faults"]:
+        torch.cuda.empty_cache()
+        undo = _plant(fault, cfg)
+        try:
+            params = T3.init_gpt(cfg, mesh, seed=0, device=device)
+            f_losses, _, f_grads = par_train(cfg, mesh, params, job["attn"],
+                                             steps=("sgd",))
+        finally:
+            undo()
+        f_errs = _par_grad_errors(f_grads, ref, mesh, cfg)
+        rec["faults"][fault] = {"grad_err_max": max(f_errs.values()),
+                                "grad_err_worst": _par_worst(f_errs),
+                                "loss": f_losses[0]}
+        del params, f_grads
+    with open(os.path.join(tmp, f"r{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def par_launches_needed(attn: str, layers: int, coords) -> int:
+    """K1-K4 launches each over PAR_STEPS on a rank: ring-flash runs the
+    kernels on the diagonal chunk and on each past one (sp index + 1
+    chunks a layer; the future ones are skipped); Ulysses runs none."""
+    if attn != "ring_flash":
+        return 0
+    return layers * (coords[1] + 1) * len(PAR_STEPS)
+
+
+def phase_parallel_gpt_470m(device, smi: str) -> dict:
+    """The slice's path: the 470m GPT through
+    ``parallel.threed.make_gpt_train_step`` in 4 gloo ranks sharing the
+    card, PAR_JOBS A and B, each against one process (``par_oracle``).
+    Gates: every rank's losses within PAR_LOSS_TOL of the one process's;
+    every rank's gradient of the SGD step within PAR_GRAD_TOL of the one
+    process's slice, tensor by tensor; in A, K1-K4 launched exactly
+    ``par_launches_needed`` times; each planted fault's (PAR_FAULTS)
+    gradient error above PAR_GRAD_TOL.  Reports the step seconds, the collectives' share
+    of them and their bytes a step by kind, every rank's peak memory."""
+    t_start = time.perf_counter()
+    out, bad = {"card": smi}, []
+    for name, (mesh, attn, layers) in PAR_JOBS.items():
+        world = math.prod(mesh)
+        faults = list(PAR_FAULTS[name])
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = par_oracle(device, layers, os.path.join(tmp, "oracle.pt"))
+            with open(os.path.join(tmp, "job.json"), "w") as f:
+                json.dump({"mesh": mesh, "attn": attn, "layers": layers,
+                           "faults": faults}, f)
+            t0 = time.perf_counter()
+            _spawn([_worker_argv("parallel_gpt_worker", r, world, tmp)
+                    for r in range(world)], 600, tmp)
+            job_s = time.perf_counter() - t0
+            recs = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"r{r}.json")) as f:
+                    recs.append(json.load(f))
+        steps = len(PAR_STEPS)
+        gaps = [max(abs(a - b) for a, b in zip(r["losses"], ref["losses"]))
+                for r in recs]
+        need = [par_launches_needed(attn, layers, r["coords"])
+                for r in recs]
+        for r, gap, n in zip(recs, gaps, need):
+            if not all(math.isfinite(x) for x in r["losses"]) \
+                    or not gap <= PAR_LOSS_TOL:
+                bad.append(f"{name} rank {r['rank']}: losses {r['losses']} "
+                           f"vs {ref['losses']} (limit {PAR_LOSS_TOL})")
+            if not r["grad_err_max"] <= PAR_GRAD_TOL:
+                bad.append(f"{name} rank {r['rank']}: gradient "
+                           f"{r['grad_err_worst']} above {PAR_GRAD_TOL}")
+            if name == "A" and any(r["launches"][k] != n for k in FA.launches):
+                bad.append(f"A rank {r['rank']}: launches {r['launches']}, "
+                           f"the schedule issues {n} each")
+        fault_reads = {f: max(r["faults"][f]["grad_err_max"] for r in recs)
+                       for f in faults}
+        for f, e in fault_reads.items():
+            if not e > PAR_GRAD_TOL:
+                bad.append(f"{name}: planted {f} reads {e}, not above "
+                           f"{PAR_GRAD_TOL}")
+        kinds = sorted({k for r in recs for k in r["collectives"]})
+        out[name] = {
+            "mesh": dict(zip(("dp", "sp", "tp"), mesh)), "attn": attn,
+            "layers": layers, "tokens_a_step": PAR_ROWS * PAR_SEQ,
+            "losses": recs[0]["losses"], "oracle_losses": ref["losses"],
+            "loss_gap_max": max(gaps),
+            "grad_err_max": [r["grad_err_max"] for r in recs],
+            "grad_err_worst_rank0": recs[0]["grad_err_worst"],
+            "launches": [r["launches"] for r in recs],
+            "launches_needed": need,
+            "step_seconds": [r["step_seconds"] for r in recs],
+            "oracle_step_seconds": ref["step_seconds"],
+            "collective_share": [
+                sum(s["s"] for s in r["collectives"].values())
+                / sum(r["step_seconds"]) for r in recs],
+            "collective_bytes_a_step": {
+                k: [r["collectives"].get(k, {"bytes": 0})["bytes"] / steps
+                    for r in recs] for k in kinds},
+            "collective_s_a_step": {
+                k: [r["collectives"].get(k, {"s": 0.0})["s"] / steps
+                    for r in recs] for k in kinds},
+            "peak_memory_gb": [r["peak_memory_gb"] for r in recs],
+            "oracle_peak_memory_gb": ref["peak_memory_gb"],
+            "faults": {f: {"grad_err_max": e,
+                           "worst": max((r["faults"][f] for r in recs),
+                                        key=lambda x: x["grad_err_max"])
+                           ["grad_err_worst"]}
+                       for f, e in fault_reads.items()},
+            "job_s": job_s, "oracle_s": ref["wall_s"]}
+    out["tol"] = {"grad": PAR_GRAD_TOL, "loss": PAR_LOSS_TOL}
+    out["seconds"] = time.perf_counter() - t_start
+    out["budget_s"] = PAR_BUDGET_S
+    if bad:
+        raise RuntimeError("parallel_gpt_470m: " + "; ".join(bad))
+    return out
+
+
 # the kernels' entry points in a ptxas report (nvcc names a source's
 # anonymous namespace after the file, "paged_attention_cu_<hash>")
 KERNEL_NAMES = r"(?:fa|paged_attention)_(?!cu_)\w+"
@@ -3232,6 +3628,11 @@ def main() -> int:
     if sys.argv[1:] == ["--commit-cost"]:
         emit({"phase": "elastic_commit_cost",
               **phase_elastic_commit_cost(device)})
+        return 0
+    if sys.argv[1:] == ["--parallel"]:
+        phase_flash_check(device, PAR_FLASH_CASES)
+        emit({"phase": "parallel_gpt_470m",
+              **phase_parallel_gpt_470m(device, smi)})
         return 0
 
     k5_errs = phase_kernel(device)
@@ -3310,6 +3711,9 @@ def main() -> int:
           **phase_elastic_gpt_470m(device, ref)})
     emit({"phase": "elastic_recover_470m",
           **phase_elastic_recover_470m(device, ref)})
+    torch.cuda.empty_cache()
+    emit({"phase": "parallel_gpt_470m",
+          **phase_parallel_gpt_470m(device, smi)})
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
 
     print(BG.device_name(device), flush=True)

@@ -5,8 +5,16 @@ Every function takes a tensor, or a dict/list of tensors, and a process
 group (None = the default group) in place of the JAX axis name, and
 returns new tensors; the inputs are left as they are.  At world size 1
 they still call into the group.  The graph-scheduled collectives
-(``graph_all_reduce``, ``striped_graph_all_reduce``) come with the
-parallel slice of the port.
+(``graph_all_reduce``, ``striped_graph_all_reduce``) come with a later
+slice of the port.
+
+The differentiable collectives of the parallel envelope
+(:func:`ppermute`, :func:`all_to_all`, :func:`copy_to_group`,
+:func:`reduce_from_group`) are ``torch.autograd.Function`` s: the
+gradient rules that ``shard_map``'s AD gives the JAX package for free.
+Their backward passes issue collectives too, so every rank of a group
+must run the same graph: autograd then issues them in the same order
+everywhere.  :func:`pmax` takes no gradient.
 """
 from __future__ import annotations
 
@@ -125,3 +133,110 @@ def ring_exchange(x, group, shift: int, n: int):
         work.wait()
     return defuse({dt: r.to(flat[dt].device) for dt, r in recvs.items()},
                   spec)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift: int):
+        ctx.group, ctx.shift = group, shift
+        n = dist.get_world_size(group)
+        return ring_exchange(x, group, shift, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        return ring_exchange(g.contiguous(), ctx.group, -ctx.shift, n), \
+            None, None
+
+
+def ppermute(x, group, shift: int = 1):
+    """Rank i's ``x`` lands at rank (i + shift) mod n: ``lax.ppermute``
+    with ``perm=[(i, (i + shift) % n)]``.  Its gradient is the reverse
+    shift, as JAX's transpose of ppermute is."""
+    return _PPermute.apply(x, group, shift)
+
+
+def _all_to_all(x, group, split_axis: int, concat_axis: int):
+    n = dist.get_world_size(group)
+    split_axis %= x.dim()
+    concat_axis %= x.dim()
+    if x.shape[split_axis] % n:
+        raise ValueError(f"axis {split_axis} of size {x.shape[split_axis]} "
+                         f"does not split over {n} ranks")
+    if n == 1:
+        return x.clone()
+    xs = x.movedim(split_axis, 0).contiguous()
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=group)   # gloo takes CUDA too
+    rest = xs.shape[1:]
+    # block j came from rank j: [n, c, rest] -> the split axis back in
+    # place, then the blocks concatenated along concat_axis in rank order
+    y = out.reshape(n, xs.shape[0] // n, *rest).movedim(1, split_axis + 1)
+    y = y.movedim(0, concat_axis)
+    shape = list(y.shape)
+    shape[concat_axis:concat_axis + 2] = [shape[concat_axis]
+                                          * shape[concat_axis + 1]]
+    return y.reshape(shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis: int, concat_axis: int):
+        ctx.args = (group, split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return _all_to_all(g, group, concat_axis, split_axis), None, None, \
+            None
+
+
+def all_to_all(x, group, split_axis: int, concat_axis: int):
+    """Tiled all-to-all, as ``lax.all_to_all(..., tiled=True)``: ``x`` is
+    cut into n blocks along ``split_axis``, block j goes to rank j, and
+    the blocks a rank receives are concatenated along ``concat_axis`` in
+    rank order.  Its gradient is the inverse exchange."""
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.group, "SUM"), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, group, "SUM")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x, group):
+    """Megatron's "copy to tensor-parallel region": the identity forward,
+    an all-reduce (sum) of the gradient backward.  It stands where a
+    replicated activation enters a sharded product, where shard_map's AD
+    sums the cotangent over the axis in JAX."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x, group):
+    """Megatron's "reduce from tensor-parallel region": an all-reduce
+    (sum) forward, the identity backward (``lax.psum`` of a value that
+    varies over the axis; its cotangent is the same on every rank)."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+def pmax(x, group):
+    """The elementwise max over the group, of detached values (``lax.pmax``
+    has no gradient rule; callers take it of stopped values)."""
+    return _reduce(x.detach(), group, "MAX")

@@ -1,14 +1,22 @@
-"""The data-parallel peer axis as a ``torch.distributed`` process group
-(counterpart of kungfu_tpu/comm/mesh.py).
+"""Mesh axes as ``torch.distributed`` process groups (counterpart of
+kungfu_tpu/comm/mesh.py).
 
 Where the JAX package names a mesh axis, the port passes the process
-group of that axis: NCCL on the card, gloo on the CPU.  Nothing here
-discovers a cluster; the caller gives the rendezvous, its rank and the
-world size (:func:`init_process_group_file`).
+group of that axis: NCCL on the card, gloo on the CPU.  The flat peer
+axis is :func:`flat_mesh`; an N-D mesh such as (dp, sp, tp) is a
+:class:`ProcessMesh` (:func:`make_mesh`), which holds this rank's
+coordinates and one group per axis and per combination of axes that a
+caller asks for.  Nothing here discovers a cluster; the caller gives the
+rendezvous, its rank and the world size (:func:`init_process_group_file`).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import datetime
+import importlib
+import itertools
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -17,15 +25,25 @@ PEER_AXIS = "kf_peers"      # flat data-parallel axis
 
 
 def init_process_group_file(path: str, rank: int, world: int,
-                            backend: Optional[str] = None) -> None:
+                            backend: Optional[str] = None,
+                            timeout_s: Optional[float] = None) -> None:
     """Join the default group through a ``FileStore`` at ``path`` (a file
     every rank can reach; no TCP port is taken).  ``backend`` defaults to
-    NCCL where CUDA is available, else gloo."""
+    NCCL where CUDA is available, else gloo.  ``timeout_s``: a collective
+    of the group raises after that many seconds (None: torch's
+    default)."""
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    # torch.distributed.nn holds group.WORLD as a default argument once
+    # imported; import it before the group forms (distributed.initialize)
+    importlib.import_module("torch.distributed.nn")
     store = dist.FileStore(path, world)
     dist.init_process_group(backend, store=store, rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=_timeout(timeout_s))
+
+
+def _timeout(seconds: Optional[float]):
+    return None if seconds is None else datetime.timedelta(seconds=seconds)
 
 
 def flat_mesh(n: Optional[int] = None):
@@ -41,3 +59,96 @@ def flat_mesh(n: Optional[int] = None):
     if n > world:
         raise ValueError(f"requested {n} ranks, have {world}")
     return dist.new_group(list(range(n)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """This rank's place in an N-D mesh of ranks: the axis names and
+    sizes, its coordinates, and the process group of each axis and each
+    combination of axes that :func:`make_mesh` formed (keyed by the tuple
+    of axis names in mesh order; a single axis also by its name)."""
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    coords: Tuple[int, ...]
+    groups: Dict[Tuple[str, ...], object]
+
+    def size(self, *axes: str) -> int:
+        return math.prod(self.shape[self.axis_names.index(a)] for a in axes)
+
+    def index(self, axis: str) -> int:
+        return self.coords[self.axis_names.index(axis)]
+
+    def group(self, *axes: str):
+        """The group of ``axes`` (in any order) that holds this rank."""
+        key = tuple(a for a in self.axis_names if a in axes)
+        if len(key) != len(axes):
+            raise ValueError(f"axes {axes} not all in {self.axis_names}")
+        if key not in self.groups:
+            raise KeyError(f"no group formed for axes {key}; pass them to "
+                           f"make_mesh(groups=...)")
+        return self.groups[key]
+
+
+def make_mesh(axis_names: Sequence[str], shape: Sequence[int],
+              groups: Optional[Sequence[Sequence[str]]] = None,
+              timeout_s: Optional[float] = None) -> Optional[ProcessMesh]:
+    """An N-D mesh over the first ``prod(shape)`` ranks of the default
+    group, the last axis innermost: rank = ((c0 * s1 + c1) * s2 + c2)...,
+    JAX's device order.  Forms one process group for each axis and for
+    each combination in ``groups`` (tuples of axis names; default: each
+    axis alone).  Every rank of the default group must call it with the
+    same arguments, since ``new_group`` is collective; a rank past the
+    mesh takes part in forming the groups and gets None.  The groups take
+    the default group's backend; ``timeout_s``: a collective of a group
+    raises after that long (None: torch's default)."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call init_process_group_file "
+                           "(or torch.distributed.init_process_group) first")
+    names, shape = tuple(axis_names), tuple(int(s) for s in shape)
+    if len(names) != len(shape) or len(set(names)) != len(names):
+        raise ValueError(f"axis names {names} do not match shape {shape}")
+    n, world = math.prod(shape), dist.get_world_size()
+    if world < n:
+        raise ValueError(f"need {n} ranks for mesh {shape}, have {world}")
+    combos = [(a,) for a in names] if groups is None else [
+        tuple(a for a in names if a in c) for c in groups]
+    for c in combos:
+        if not c or not set(c) <= set(names):
+            raise ValueError(f"group axes {c} not in {names}")
+    me = dist.get_rank()
+    coords = (tuple(int(i) for i in _unravel(me, shape)) if me < n
+              else None)
+    formed = {}
+    for combo in dict.fromkeys(combos):
+        axes = [names.index(a) for a in combo]
+        rest = [i for i in range(len(names)) if i not in axes]
+        for fixed in itertools.product(*(range(shape[i]) for i in rest)):
+            ranks = []
+            for free in itertools.product(*(range(shape[i]) for i in axes)):
+                c = [0] * len(names)
+                for i, v in zip(rest, fixed):
+                    c[i] = v
+                for i, v in zip(axes, free):
+                    c[i] = v
+                ranks.append(_ravel(c, shape))
+            g = dist.new_group(ranks, timeout=_timeout(timeout_s))
+            if me in ranks:
+                formed[combo] = g
+    if coords is None:
+        return None
+    return ProcessMesh(names, shape, coords, formed)
+
+
+def _ravel(coords, shape) -> int:
+    r = 0
+    for c, s in zip(coords, shape):
+        r = r * s + c
+    return r
+
+
+def _unravel(rank: int, shape):
+    out = []
+    for s in reversed(shape):
+        out.append(rank % s)
+        rank //= s
+    return tuple(reversed(out))

@@ -24,7 +24,10 @@ from .models.resnet import BatchNorm
 
 
 def params_from_jax(tree: Dict, cfg: GPTConfig, device="cpu") -> Dict:
-    """f32 tensors on ``device`` with the same nesting as ``tree``."""
+    """f32 tensors on ``device`` with the same nesting as ``tree``.  A
+    rank of a (dp, sp, tp) mesh takes its slices of the result with
+    ``parallel.threed.shard_params``, as JAX's ``shard_params`` places the
+    full tree on the mesh."""
     want = param_shapes(cfg)
 
     def copy(path, node, shape):

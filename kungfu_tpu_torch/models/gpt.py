@@ -11,9 +11,19 @@ layouts, so a JAX checkpoint or parameter tree carries over by name
 
 Numerics follow the JAX functions: activations in ``cfg.dtype``, norms and
 softmax in f32, logits f32 from the f32 ``lm_head``.  What is ported is
-the training forward (flash or dense attend, remat modes), the loss and
-the plain decode loop (the serving engine's oracle); tensor and sequence
-parallelism come with the parallel slice.
+the training forward (flash or dense attend, remat modes), the loss, the
+plain decode loop (the serving engine's oracle), and tensor and sequence
+parallelism in training.
+
+Parallelism: where a JAX function takes the mesh axis names ``tp_axis``
+and ``sp_axis`` inside ``shard_map``, these take the process groups
+``tp_group`` and ``sp_group`` (a ``comm.mesh.ProcessMesh``'s).  Under tp
+each rank holds the slices :func:`param_specs` names (heads, FFN features,
+vocabulary); a replicated activation enters a sharded product through
+``copy_to_group`` and the partial products leave through
+``reduce_from_group``, which places the all-reduces where JAX's psums and
+their transposes fall.  Under sp each rank holds a block of the sequence
+and rotates RoPE by its global positions.
 """
 from __future__ import annotations
 
@@ -22,11 +32,15 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..comm.collectives import copy_to_group, pmax, reduce_from_group
 from ..ops.flash_attention import _expand_kv_heads, flash_attention
-from ..parallel.ring_attention import reference_attention
+from ..parallel.ring_attention import (reference_attention, ring_attention,
+                                       ring_flash_attention,
+                                       ulysses_attention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +112,32 @@ def param_shapes(cfg: GPTConfig) -> Dict:
     if not cfg.rope:
         out["wpe"] = (cfg.max_seq, D)
     return out
+
+
+def param_specs(cfg: GPTConfig) -> Dict:
+    """The dimension each parameter splits on over the tp ranks, or None
+    for a replicated one, in the parameter tree's nesting (JAX's
+    ``PartitionSpec`` tree: q/k/v on their heads, the attention output on
+    its heads, the FFN on its features, the LM head on the vocabulary)."""
+    def layer():
+        return {"ln1": None, "wq": 1, "wk": 1, "wv": 1, "wo": 0,
+                "ln2": None, "wi": 2 if cfg.mlp == "swiglu" else 1,
+                "wm": 0}
+    out = {"wte": None, "layers": [layer() for _ in range(cfg.n_layers)],
+           "lnf": None, "lm_head": 1}
+    if not cfg.rope:
+        out["wpe"] = None
+    return out
+
+
+def validate_tp(cfg: GPTConfig, ntp: int) -> None:
+    """Every dimension :func:`param_specs` shards over tp must divide by
+    the rank count."""
+    for what, val in (("n_heads", cfg.n_heads), ("kv_heads", cfg.kv_heads),
+                      ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+        if val % ntp != 0:
+            raise ValueError(f"{what}={val} not divisible by {ntp} "
+                             f"tensor-parallel ranks")
 
 
 def init_params(gen: torch.Generator, cfg: GPTConfig) -> Dict:
@@ -188,10 +228,13 @@ def _rope_rotate(t, pos, cfg: GPTConfig):
                       t1 * sin + t2 * cos], dim=-1).to(t.dtype)
 
 
-def _layer_qkv(layer, x, cfg: GPTConfig, pos=None):
-    """ln1 + q/k/v projections; k/v come out with ``kv_heads`` heads.
-    With RoPE, q and k are rotated by the global positions ``pos``."""
+def _layer_qkv(layer, x, cfg: GPTConfig, pos=None, tp_group=None):
+    """ln1 + q/k/v projections; k/v come out with ``kv_heads`` heads (the
+    rank's heads under tp).  With RoPE, q and k are rotated by the global
+    positions ``pos``."""
     h = rms_norm(x, layer["ln1"])
+    if tp_group is not None:
+        h = copy_to_group(h, tp_group)
     q = torch.einsum("btd,dhk->bthk", h, layer["wq"].to(cfg.dtype))
     kk = torch.einsum("btd,dhk->bthk", h, layer["wk"].to(cfg.dtype))
     v = torch.einsum("btd,dhk->bthk", h, layer["wv"].to(cfg.dtype))
@@ -208,8 +251,11 @@ def _expand_kv(t, cfg: GPTConfig):
     return _expand_kv_heads(t, cfg.kv_groups)
 
 
-def _dense_ffn(layer, h, cfg: GPTConfig):
-    """Post-norm activations -> FFN delta (no residual add)."""
+def _dense_ffn(layer, h, cfg: GPTConfig, tp_group=None):
+    """Post-norm activations -> FFN delta (no residual add).  Under tp
+    the rank's features, and one all-reduce of the delta."""
+    if tp_group is not None:
+        h = copy_to_group(h, tp_group)
     if cfg.mlp == "swiglu":
         wi = layer["wi"].to(cfg.dtype)              # [D, 2, F]
         fl = wi.shape[2]
@@ -217,27 +263,50 @@ def _dense_ffn(layer, h, cfg: GPTConfig):
         u = F.silu(u[..., :fl]) * u[..., fl:]
     else:
         u = F.gelu(h @ layer["wi"].to(cfg.dtype), approximate="tanh")
-    return u @ layer["wm"].to(cfg.dtype)
+    m = u @ layer["wm"].to(cfg.dtype)
+    if tp_group is not None:
+        m = reduce_from_group(m, tp_group)
+    return m
 
 
-def _layer_finish(layer, x, o, cfg: GPTConfig, remat_ffn: bool = False):
+def _layer_finish(layer, x, o, cfg: GPTConfig, remat_ffn: bool = False,
+                  tp_group=None):
     """Attention output projection + residual + FFN; with ``remat_ffn``
     the norm + FFN sub-block is recomputed in the backward."""
     o = torch.einsum("bthk,hkd->btd", o, layer["wo"].to(cfg.dtype))
+    if tp_group is not None:
+        o = reduce_from_group(o, tp_group)
     x = x + o
 
     def norm_ffn(x):
-        return _dense_ffn(layer, rms_norm(x, layer["ln2"]), cfg)
+        return _dense_ffn(layer, rms_norm(x, layer["ln2"]), cfg, tp_group)
 
     if remat_ffn:
         norm_ffn = _checkpoint(norm_ffn)
     return x + norm_ffn(x)
 
 
-def _attend(q, kk, v, attn: str, kv_groups: int = 1):
+# the attention modes that attend over the sequence shards of an sp group
+SP_ATTN_MODES = ("ring", "ring_flash", "ulysses")
+
+
+def _attend(q, kk, v, attn: str, kv_groups: int = 1, sp_group=None):
     """``kk``/``v`` arrive compact (kv_heads).  "flash": the flash
     kernels (K1-K4), which read the compact KV heads directly; "dense":
-    the f32 oracle on expanded heads."""
+    the f32 oracle on expanded heads; "ring", "ring_flash" (the flash
+    kernels on the diagonal and past chunks) and "ulysses" attend over the sequence shards
+    of ``sp_group`` with the compact KV heads in transit."""
+    if attn in SP_ATTN_MODES and sp_group is None:
+        raise ValueError(f"attn={attn!r} needs a sequence-parallel group")
+    if attn == "ring":
+        return ring_attention(q, kk, v, sp_group, causal=True,
+                              kv_groups=kv_groups)
+    if attn == "ring_flash":
+        return ring_flash_attention(q, kk, v, sp_group, causal=True,
+                                    kv_groups=kv_groups)
+    if attn == "ulysses":
+        return ulysses_attention(q, kk, v, sp_group, causal=True,
+                                 kv_groups=kv_groups)
     if attn == "flash":
         return flash_attention(q, kk, v, causal=True, kv_groups=kv_groups)
     if attn == "dense":
@@ -256,9 +325,11 @@ def _checkpoint(fn):
 
 def apply_layer(layer, x, cfg: GPTConfig, *, attn: str = "dense",
                 pos=None, remat_ffn: bool = False,
-                remat_around_attn: bool = False):
-    """One transformer block on ``x`` [B, T, D]; ``pos`` [T] the token
-    positions (default arange).
+                remat_around_attn: bool = False, tp_group=None,
+                sp_group=None):
+    """One transformer block on (this rank's) ``x`` [B, T, D]; ``pos``
+    [T] the GLOBAL token positions, which a sequence-sharded RoPE model
+    must give (default arange, the unsharded case).
 
     ``remat_ffn`` recomputes the norm + FFN sub-block in the backward.
     ``remat_around_attn`` is selective remat: the qkv projections and the
@@ -267,47 +338,70 @@ def apply_layer(layer, x, cfg: GPTConfig, *, attn: str = "dense",
     (q, compact k/v, out, lse) are saved and the backward never re-runs
     the attention forward."""
     if pos is None:
+        if cfg.rope and sp_group is not None:
+            raise ValueError("RoPE under sequence parallelism needs "
+                             "explicit global positions (pos)")
         pos = torch.arange(x.shape[1], device=x.device)
 
     def qkv_fn(layer, x):
-        return _layer_qkv(layer, x, cfg, pos=pos)
+        return _layer_qkv(layer, x, cfg, pos=pos, tp_group=tp_group)
 
     def finish(layer, x, o):
-        return _layer_finish(layer, x, o, cfg, remat_ffn)
+        return _layer_finish(layer, x, o, cfg, remat_ffn, tp_group)
 
     if remat_around_attn:
         qkv_fn, finish = _checkpoint(qkv_fn), _checkpoint(finish)
     q, kk, v = qkv_fn(layer, x)
-    o = _attend(q, kk, v, attn, kv_groups=cfg.kv_groups)
+    o = _attend(q, kk, v, attn, kv_groups=cfg.kv_groups, sp_group=sp_group)
     return finish(layer, x, o)
 
 
 _REMAT_MODES = (False, None, "", "none", True, "full", "ffn", "attn")
 
 
+def _global_positions(T: int, sp_group, device):
+    """This rank's positions in the global sequence: its block of the
+    rank-order concatenation, offset by rank x T_local under sp."""
+    offset = dist.get_rank(sp_group) * T if sp_group is not None else 0
+    return offset + torch.arange(T, device=device)
+
+
 def forward_features(params, tokens, cfg: GPTConfig, attn: str = "auto",
-                     remat=False):
+                     remat=False, tp_group=None, sp_group=None):
     """Transformer stack -> post-norm features [B, T, D] (everything but
     the LM head); feed them to ``ops.chunked_ce.chunked_cross_entropy``
-    to train without [B, T, V] logits.
+    to train without [B, T, V] logits (unsharded head), or under tp
+    to :func:`forward_local`'s vocab-sharded logits and
+    :func:`parallel_cross_entropy`.
+
+    ``tokens`` [B_local, T_local]: under ``sp_group`` the global sequence
+    is the rank-order concatenation of the shards; under ``tp_group`` the
+    parameters hold this rank's slices (:func:`param_specs`).
 
     ``attn``: "flash" (the CUDA kernels; their plain version on a CPU
-    tensor) | "dense"; "auto" = flash on a CUDA tensor, dense on a CPU
-    one.  ``remat``: False/"none" | "full"/True (each layer recomputed
-    in the backward; the flash forward then runs twice per layer) |
-    "ffn" | "attn" (see :func:`apply_layer`)."""
+    tensor) | "dense" | "ring" | "ring_flash" | "ulysses" (the last three
+    need ``sp_group``); "auto" = ring_flash under sp on a CUDA tensor,
+    ring under sp on a CPU one, else flash on a CUDA tensor, dense on a
+    CPU one.  ``remat``: False/"none" | "full"/True (each layer
+    recomputed in the backward; the flash forward then runs twice per
+    layer) | "ffn" | "attn" (see :func:`apply_layer`)."""
     if remat not in _REMAT_MODES:
         raise ValueError(f"unknown remat mode {remat!r}")
+    cuda = tokens.device.type == "cuda"
     if attn == "auto":
-        attn = "flash" if tokens.device.type == "cuda" else "dense"
+        if sp_group is not None:
+            attn = "ring_flash" if cuda else "ring"
+        else:
+            attn = "flash" if cuda else "dense"
     T = tokens.shape[1]
-    pos = torch.arange(T, device=tokens.device)
+    pos = _global_positions(T, sp_group, tokens.device)
     x = embed(params, tokens, pos[None], cfg)
 
     def layer_fn(layer, x):
         return apply_layer(layer, x, cfg, attn=attn, pos=pos,
                            remat_ffn=(remat == "ffn"),
-                           remat_around_attn=(remat == "attn"))
+                           remat_around_attn=(remat == "attn"),
+                           tp_group=tp_group, sp_group=sp_group)
 
     if remat in (True, "full"):
         layer_fn = _checkpoint(layer_fn)
@@ -317,19 +411,37 @@ def forward_features(params, tokens, cfg: GPTConfig, attn: str = "auto",
 
 
 def forward_local(params, tokens, cfg: GPTConfig, attn: str = "auto",
-                  remat=False):
-    """:func:`forward_features` + LM head -> f32 logits [B, T, V]."""
-    x = forward_features(params, tokens, cfg, attn=attn, remat=remat)
-    return torch.einsum("btd,dv->btv", x.float(), params["lm_head"].float())
+                  remat=False, tp_group=None, sp_group=None):
+    """:func:`forward_features` + LM head -> f32 logits [B, T, V]
+    (vocab-sharded, [B, T, V / tp], under ``tp_group``)."""
+    x = forward_features(params, tokens, cfg, attn=attn, remat=remat,
+                         tp_group=tp_group, sp_group=sp_group).float()
+    if tp_group is not None:
+        x = copy_to_group(x, tp_group)
+    return torch.einsum("btd,dv->btv", x, params["lm_head"].float())
 
 
-def parallel_cross_entropy(logits, targets):
-    """Token NLL [B, T] from f32 logits [B, T, V] (the unsharded case of
-    the JAX function: the max is a stability shift with its gradient
-    stopped)."""
+def parallel_cross_entropy(logits, targets, tp_group=None):
+    """Token NLL [B, T] from f32 logits [B, T, V_local] and GLOBAL target
+    ids [B, T].  The max is a stability shift taken of stopped logits
+    (one ``pmax`` over ``tp_group``); the normaliser and the target's
+    logit are assembled with two all-reduces whose gradient is the
+    identity (every tp rank backpropagates the same loss).  Logits are
+    never gathered (Megatron's parallel cross-entropy)."""
+    v_local = logits.shape[-1]
     m = logits.detach().amax(dim=-1)
+    if tp_group is not None:
+        m = pmax(m, tp_group)
     denom = torch.exp(logits - m[..., None]).sum(dim=-1)
-    picked = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    lo = dist.get_rank(tp_group) * v_local if tp_group is not None else 0
+    local_t = targets.long() - lo
+    in_range = (local_t >= 0) & (local_t < v_local)
+    safe = local_t.clamp(0, v_local - 1)
+    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    picked = torch.where(in_range, picked, 0.0)
+    if tp_group is not None:
+        denom = reduce_from_group(denom, tp_group)
+        picked = reduce_from_group(picked, tp_group)
     return m + torch.log(denom) - picked
 
 
