@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --commit-cost
     python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --serving-tp
 
 With no arguments:
 
@@ -18,7 +19,8 @@ With no arguments:
    partials, a past-reach scratch block) that the limit would catch them,
    and times it (the serve's ragged slots, every slot at full length, the
    Q = 4 verify) beside its bound, one launch's floor, the plain version
-   and one PyTorch attention call;
+   and one PyTorch attention call, and checks and times it at a tp-2
+   rank's shard (8 query heads, 2 KV heads; bf16 and int8 pools);
 3. serves the repo's 470m GPT (kungfu_tpu/benchmarks/gpt.py preset,
    seed-initialized, bf16) over HTTP through the port's ServingServer:
    16 concurrent streamed requests, checking that every decode layer-step
@@ -32,12 +34,23 @@ With no arguments:
    the suffix prefill's logits against a full prefill, two planted faults
    above the limit; for each request whose greedy tokens differ with
    the cache on and off, the first index and the f32 logit margin
-   there); then a speculative (K=3), an int8-KV and an int8 weights +
-   int8-KV + speculative engine at 4 layers;
+   there); serves serve_470m's 16 requests at tensor parallelism 2 through
+   ``python -m kungfu_tpu_torch.serving --tp 2 --backend gloo`` (2 ranks
+   sharing the card): K5 at every decode layer-step on each rank, the
+   journal, each rank's collective seconds, weight bytes and peak memory,
+   rank 0's prefill logits against the one-device engine's with three
+   planted faults above the limit (layer 0's attention-output all-reduce
+   skipped, rank 1 holding rank 0's KV heads, the vocabulary blocks
+   gathered in reverse), and the margin wherever its greedy tokens part
+   from the one-device run's (``serve_470m_tp2``); then a speculative
+   (K=3), an int8-KV and an int8 weights + int8-KV + speculative engine
+   at 4 layers;
 4. checks that greedy tokens of an f32 full-width engine are the same
    with the fused kernel and with the gather path, and, at 2 layers, with
    the prefix cache on and off under a roomy pool, LRU eviction and
-   preemption;
+   preemption, and at tp 2 over gloo (int8 weights + int8 KV +
+   speculative 3, the prefix cache's three cases, ``make_tp_generate``)
+   against tp 1 (``tp2_f32_2l``);
 5. holds the flash-attention kernels K1-K4 (forward, delta, dq, dk/dv)
    against their plain version through autograd -- bf16 and f32, head_dim
    64 and 128, causal and not, GQA, a ragged T, Tq != Tk, an lse
@@ -94,7 +107,7 @@ With no arguments:
    FileStore, with an all-reduce and a tree broadcast at each, and
    ``memory_reserved`` and the card's used memory held to a margin
    (``elastic_nccl_reinit``); and
-   trains the 470m GPT at full width, 12 of its 24 layers, while the
+   trains the 470m GPT at full width, 6 of its 24 layers, while the
    port's config server and watcher resize it 2 -> 4 -> 3 (ranks sharing
    the card over gloo; rank 0 proposes each stage, the watcher spawns the
    newcomers and reaps the rank that leaves): the replicas and Adam
@@ -145,6 +158,10 @@ does a machine without a CUDA device.  Imports nothing of JAX.
 ``--parallel`` builds the kernels, prints the card, checks FLASH_CASES y
 and z and runs only ``parallel_gpt_470m``.
 
+``--serving-tp`` builds the kernels, prints the card, and runs only K5 at
+the tp-2 shapes, ``serve_470m`` (tp 2's reference), ``serve_470m_tp2``
+and ``tp2_f32_2l``.
+
 ``--commit-cost`` builds the kernels, prints the card, and runs only
 ``elastic_gpt_470m``'s sound schedule four times, with a commit at every
 step, with none, none and at every step again: each job's step seconds
@@ -158,7 +175,9 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
+import subprocess
 import sys
 import tempfile
 import threading
@@ -167,6 +186,7 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from kungfu_tpu_torch.benchmarks import flash_variants as FV
@@ -291,16 +311,20 @@ def k5_bound(inp) -> dict:
 
 
 def sdpa_yardstick(inp):
-    """One PyTorch attention call on the gathered, GQA-expanded cache with
-    the same mask (gather included) -- a yardstick the port never calls."""
+    """One PyTorch attention call on the gathered (an int8 pool
+    dequantized), GQA-expanded cache with the same mask (gather
+    included) -- a yardstick the port never calls."""
     q, kp, vp, tables, pos = (inp["q"], inp["k_pool"], inp["v_pool"],
                               inp["tables"], inp["pos"])
     S, Q, H, Dh = q.shape
     idx = tables.long()
-    kc = _expand_kv_heads(kp[idx].reshape(S, -1, kp.shape[2], Dh),
-                          H // kp.shape[2])
-    vc = _expand_kv_heads(vp[idx].reshape(S, -1, kp.shape[2], Dh),
-                          H // kp.shape[2])
+    kc, vc = (p[idx].reshape(S, -1, kp.shape[2], Dh) for p in (kp, vp))
+    if inp["k_scale"] is not None:
+        kc, vc = ((c.float() * s[idx].reshape(S, -1, kp.shape[2], 1)
+                   ).to(q.dtype) for c, s in ((kc, inp["k_scale"]),
+                                              (vc, inp["v_scale"])))
+    kc = _expand_kv_heads(kc, H // kp.shape[2])
+    vc = _expand_kv_heads(vc, H // kp.shape[2])
     L = kc.shape[1]
     mask = (torch.arange(L, device=q.device)[None, None, :]
             <= (pos.long()[:, None] + torch.arange(Q, device=q.device))
@@ -448,6 +472,40 @@ def phase_k5_time(device) -> dict:
     return recs
 
 
+# K5 at a tp-2 rank's shard of the 470m serve (8 query heads, 2 KV heads):
+# row -> (Q, int8 pool); seed 1, the positions of K5_TIME_ROWS' rows
+K5_TP2_ROWS = {"tp2_bf16_q1": (1, False), "tp2_bf16_q4": (4, False),
+               "tp2_int8_q1": (1, True)}
+K5_TP2_HEADS = dict(H=8, KVH=2)
+
+
+def phase_k5_tp2(device) -> dict:
+    """K5 at the tp-2 shard's shapes, q [8, Q, 8, 64] bf16 and pools
+    [512, 32, 2, 64] bf16 or int8: checked against its plain version
+    within ``K5_TOL``, and timed beside its bound, the plain version and
+    SDPA after a gather (the int8 pool dequantized).  Returns row ->
+    record."""
+    timer = Timer(device)
+    recs = {}
+    for name, (Q, quant) in K5_TP2_ROWS.items():
+        inp = k5_inputs(device, torch.bfloat16, Q, quant,
+                        np.random.RandomState(1), **K5_TP2_HEADS)
+        got = PA.paged_attention_queries(**inp)
+        want = PA.paged_attention_queries_ref(**inp)
+        torch.testing.assert_close(got.float(), want.float(), rtol=K5_TOL,
+                                   atol=K5_TOL)
+        rec = {"ms": timer(lambda: PA.paged_attention_queries(**inp)),
+               "plain_ms": timer(lambda: PA.paged_attention_queries_ref(
+                   **inp)),
+               "library_ms": timer(lambda: sdpa_yardstick(inp)),
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "tol": K5_TOL, **k5_bound(inp)}
+        emit({"phase": "k5_tp2", "case": name, **rec,
+              "gb_per_s": rec["bytes"] / rec["ms"] / 1e6})
+        recs[name] = rec
+    return recs
+
+
 # ------------------------------------------------------ phase 3: serve
 def _stream(url, prompt, max_new):
     """POST a streamed /generate; returns (tokens, seconds to the first
@@ -469,51 +527,44 @@ def _stream(url, prompt, max_new):
     return toks, ttft, tail
 
 
-def tree_bytes(tree) -> int:
-    """Resident bytes of a parameter tree (an int8 weight counts its q and
-    its scale)."""
-    return sum(t.numel() * t.element_size() for leaf in tree_leaves(tree)
-               for t in ((leaf.q, leaf.scale)
-                         if isinstance(leaf, QuantizedTensor) else (leaf,)))
+def _get(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
 
 
-def serve_traffic(eng, prompts, max_new, warmup) -> dict:
-    """Serve ``warmup`` then ``prompts`` (16 concurrent streamed clients)
-    through a ServingServer on ``eng``; K5 launches and the engine's
-    stats count the clients' run only.  Gates: every request returns
-    ``max_new`` in-range tokens; K5 launched at least layers x dispatches
-    x chunk times; ``GET /requests`` holds one finished record per
-    request, warm-up included, each with ttft <= e2e."""
-    srv = ServingServer(eng, port=0).start()
-    base = f"http://{srv.host}:{srv.port}"
+def drive_traffic(base, prompts, max_new, warmup, zero) -> dict:
+    """Stream ``warmup`` (2 tokens), call ``zero()``, then stream
+    ``prompts`` from concurrent clients, ``max_new`` tokens each, to the
+    server at ``base``; read ``GET /stats`` and ``GET /requests?n=64``
+    after.  Returns the replies, the clients' wall seconds, both reads
+    and ``zero()``'s value."""
     url = base + "/generate"
-    n_req = len(prompts)
-    try:
-        warm = _stream(url, warmup, 2)
-        results = [None] * n_req
+    warm = _stream(url, warmup, 2)
+    results = [None] * len(prompts)
 
-        def client(i):
-            results[i] = _stream(url, prompts[i], max_new)
+    def client(i):
+        results[i] = _stream(url, prompts[i], max_new)
 
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(n_req)]
-        eng.stats.reset()
-        PA.launches = 0           # counts from the main path's run only
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
-        wall = time.perf_counter() - t0
-        launches = PA.launches
-        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
-            stats = json.loads(r.read())
-        with urllib.request.urlopen(base + "/requests?n=64",
-                                    timeout=60) as r:
-            journal = json.loads(r.read())
-    finally:
-        srv.close()
-    cfg = eng.cfg
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    before = zero()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    return {"warm": warm, "results": results,
+            "wall": time.perf_counter() - t0, "before": before,
+            "stats": _get(base + "/stats"),
+            "journal": _get(base + "/requests?n=64")}
+
+
+def check_traffic(run, max_new, vocab_size) -> dict:
+    """The gates of a :func:`drive_traffic` run: every request returns
+    ``max_new`` in-range tokens; ``GET /requests`` holds one finished
+    record per request, warm-up included, each with ttft <= e2e.
+    Returns the client-side readings."""
+    results, journal = run["results"], run["journal"]
     for i, res in enumerate(results):
         if res is None:
             raise RuntimeError(f"request {i} got no reply")
@@ -521,30 +572,53 @@ def serve_traffic(eng, prompts, max_new, warmup) -> dict:
         if (len(toks) != max_new or not tail or not tail.get("done")
                 or tail.get("tokens_total") != max_new):
             raise RuntimeError(f"request {i}: {len(toks)} tokens, {tail}")
-        if not all(0 <= t < cfg.vocab_size for t in toks):
+        if not all(0 <= t < vocab_size for t in toks):
             raise RuntimeError(f"request {i}: token out of range")
-    need = cfg.n_layers * stats["dispatches"] * eng.K
-    if launches < need or launches == 0:
-        raise RuntimeError(f"K5 launched {launches} times, decode needed "
-                           f"{need} ({cfg.n_layers} layers x "
-                           f"{stats['dispatches']} dispatches x chunk "
-                           f"{eng.K})")
-    uids = {warm[2]["uid"]} | {r[2]["uid"] for r in results}
+    uids = {run["warm"][2]["uid"]} | {r[2]["uid"] for r in results}
     fin = {rec["uid"]: rec for rec in journal["finished"]}
     if set(fin) != uids or journal["open"] or any(
             rec["outcome"] != "finish" or rec["ttft_ms"] is None
             or rec["ttft_ms"] > rec["e2e_ms"] for rec in fin.values()):
         raise RuntimeError(f"journal: finished {sorted(fin)} for requests "
                            f"{sorted(uids)}, open {journal['open']}")
+    n_req, wall = len(results), run["wall"]
     return {"requests": n_req, "max_new": max_new, "wall_s": wall,
             "tokens_per_s": n_req * max_new / wall,
             "mean_ttft_s": statistics.mean(r[1] for r in results),
             "journal_mean_ttft_s": statistics.mean(
                 fin[r[2]["uid"]]["ttft_ms"] for r in results) / 1e3,
             "journal_records": len(fin), "slo": journal["slo"],
-            "k5_launches": launches, "k5_launches_needed": need,
-            "weight_bytes": tree_bytes(eng.params), "stats": stats,
             "tokens": [r[0] for r in results]}
+
+
+def serve_traffic(eng, prompts, max_new, warmup) -> dict:
+    """Serve ``warmup`` then ``prompts`` (16 concurrent streamed clients)
+    through a ServingServer on ``eng``; K5 launches and the engine's
+    stats count the clients' run only.  Gates: those of
+    :func:`check_traffic`, and K5 launched at least layers x dispatches x
+    chunk times."""
+    srv = ServingServer(eng, port=0).start()
+
+    def zero():
+        eng.stats.reset()
+        PA.launches = 0           # counts from the main path's run only
+
+    try:
+        run = drive_traffic(f"http://{srv.host}:{srv.port}", prompts,
+                            max_new, warmup, zero)
+        launches = PA.launches
+    finally:
+        srv.close()
+    cfg, stats = eng.cfg, run["stats"]
+    out = check_traffic(run, max_new, cfg.vocab_size)
+    need = cfg.n_layers * stats["dispatches"] * eng.K
+    if launches < need or launches == 0:
+        raise RuntimeError(f"K5 launched {launches} times, decode needed "
+                           f"{need} ({cfg.n_layers} layers x "
+                           f"{stats['dispatches']} dispatches x chunk "
+                           f"{eng.K})")
+    return dict(out, k5_launches=launches, k5_launches_needed=need,
+                weight_bytes=E.resident_bytes(eng.params), stats=stats)
 
 
 def serve_prompts(cfg, n_req=16, plen=(8, 500)):
@@ -690,23 +764,18 @@ def _prefix_requests(prefix, n, max_new, bs):
             for i in range(n)]
 
 
-def phase_prefix_f32(device) -> dict:
-    """tests/test_prefix_cache.py's cases on the card: a full-width
-    2-layer f32 engine, ``prefill_group=1``, 32-token blocks, so prompts
-    and lengths are the test's times 8.  Gates: greedy tokens equal the
-    cache-off engine's in each case; the cache hit (roomy pool); LRU
-    eviction made a repeat miss (1 slot, 7 blocks, prompts A B B A);
-    preemption happened (16 blocks); every reference count returns to
-    zero."""
-    cfg = G.GPTConfig(**dict(MODEL, n_layers=2), dtype=torch.float32)
-    params = G.init_params(torch.Generator(device=device).manual_seed(7),
-                           cfg)
+def prefix_cases(cfg) -> dict:
+    """tests/test_prefix_cache.py's cases at 32-token blocks (its prompts
+    and lengths times 8): name -> (engine settings over ``ENGINE``,
+    request batches run one after the other).  A roomy pool; LRU
+    eviction (1 slot, 7 blocks, prompts A B B A); preemption (16
+    blocks)."""
     bs = ENGINE["block_size"]
     rng = np.random.RandomState(8)
     prefix = rng.randint(0, cfg.vocab_size, 4 * bs).tolist()
     a = rng.randint(0, cfg.vocab_size, 4 * bs + 1).tolist()
     b = rng.randint(0, cfg.vocab_size, 4 * bs + 1).tolist()
-    cases = {
+    return {
         "roomy": (dict(num_slots=4, num_blocks=512),
                   [_prefix_requests(prefix, 4, 48, bs)]),
         "eviction": (dict(num_slots=1, num_blocks=8),
@@ -715,8 +784,34 @@ def phase_prefix_f32(device) -> dict:
         "preemption": (dict(num_slots=4, num_blocks=16),
                        [_prefix_requests(prefix, 5, 64, bs)]),
     }
+
+
+def prefix_gate(name: str, st) -> dict:
+    """The cache-on engine's stats after :func:`prefix_cases` case
+    ``name``: the cache hit (roomy), the evicted repeat missed
+    (eviction), preemption happened (preemption)."""
+    bs = ENGINE["block_size"]
+    ok = {"roomy": st.prefix_hits == 3
+          and st.prefix_tokens_reused == 3 * 4 * bs,
+          "eviction": st.prefix_hits == 1
+          and st.prefix_tokens_reused == 4 * bs,
+          "preemption": st.preemptions >= 1 and st.prefix_hits >= 1}
+    if not ok[name]:
+        raise RuntimeError(f"prefix {name}: {st.summary()}")
+    return {k: getattr(st, k) for k in (
+        "prefix_hits", "prefix_tokens_reused", "preemptions", "prefills")}
+
+
+def phase_prefix_f32(device) -> dict:
+    """tests/test_prefix_cache.py's cases on the card (:func:`prefix_cases`):
+    a full-width 2-layer f32 engine, ``prefill_group=1``.  Gates: greedy
+    tokens equal the cache-off engine's in each case; :func:`prefix_gate`;
+    every reference count returns to zero."""
+    cfg = G.GPTConfig(**dict(MODEL, n_layers=2), dtype=torch.float32)
+    params = G.init_params(torch.Generator(device=device).manual_seed(7),
+                           cfg)
     out = {}
-    for name, (kw, batches) in cases.items():
+    for name, (kw, batches) in prefix_cases(cfg).items():
         kw = dict(ENGINE, prefill_group=1, **kw)
         on = DecodeEngine(params, cfg, device=device, prefix_cache=True,
                           **kw)
@@ -727,20 +822,10 @@ def phase_prefix_f32(device) -> dict:
             if got != want:
                 raise RuntimeError(f"prefix {name}: tokens {got} != cache "
                                    f"off {want}")
-        st = on.stats
         if int((on._block_ref > 0).sum()) or (on._available()
                                               != on._total_blocks):
             raise RuntimeError(f"prefix {name}: references left")
-        ok = {"roomy": st.prefix_hits == 3
-              and st.prefix_tokens_reused == 3 * 4 * bs,
-              "eviction": st.prefix_hits == 1
-              and st.prefix_tokens_reused == 4 * bs,
-              "preemption": st.preemptions >= 1 and st.prefix_hits >= 1}
-        if not ok[name]:
-            raise RuntimeError(f"prefix {name}: {st.summary()}")
-        out[name] = {k: getattr(st, k) for k in (
-            "prefix_hits", "prefix_tokens_reused", "preemptions",
-            "prefills")}
+        out[name] = prefix_gate(name, on.stats)
     return {"cases": out, "tokens_equal": True}
 
 
@@ -765,7 +850,9 @@ def _prefix_logits(eng, prompts, shared, t_cached, fault=None):
     cached ``shared`` blocks (``t_cached`` tokens), or with ``shared``
     None the full-prompt prefill.  ``fault``: "short" passes t_cached one
     block short; "block" points one shared column at the scratch block.
-    Returns (logits, ms of the program, synchronised)."""
+    Returns (logits, ms of the program, synchronised).  On a tp engine
+    every rank makes the same call (the programs' collectives pair up)
+    and gets the same logits."""
     bs, n = eng.bs, len(prompts)
     for blk in shared or []:           # no eviction may take them
         eng._acquire_shared(blk)
@@ -791,12 +878,13 @@ def _prefix_logits(eng, prompts, shared, t_cached, fault=None):
     with torch.no_grad():
         if shared is None:
             x = E._prefill_features(eng.params, eng.cfg, bs, eng.pools,
-                                    dev(rows), dev(toks), dev(t_real), prep)
+                                    dev(rows), dev(toks), dev(t_real), prep,
+                                    eng.tp)
         else:
             x = E._prefill_cached_features(
                 eng.params, eng.cfg, bs, eng.pools, dev(rows), dev(toks),
-                dev(t_real), dev(np.full(n, tc, np.int32)), prep)
-        logits = E._last_logits(eng.params, x, dev(t_real), prep)
+                dev(t_real), dev(np.full(n, tc, np.int32)), prep, eng.tp)
+        logits = E._last_logits(eng.params, x, dev(t_real), prep, eng.tp)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     for blk in [b for blocks in own for b in blocks] + (shared or []):
@@ -841,18 +929,19 @@ def phase_serve_prefix(params, cfg, device) -> dict:
     return dict(check, system_tokens=PREFIX_SYSTEM, logit_limit=PREFIX_TOL,
                 tokens_equal_on_off=sum(a == b for a, b in zip(
                     tokens["on"], tokens["off"])), runs=runs,
-                near_ties=prefix_near_ties(params, cfg, device, prompts,
-                                           tokens["on"], tokens["off"]))
+                near_ties=near_ties(params, cfg, device, prompts,
+                                    tokens["on"], tokens["off"]))
 
 
-def prefix_near_ties(params, cfg, device, prompts, on, off) -> list:
-    """For each request whose greedy tokens differ with the cache on and
-    off: the first index where they differ and the f32 logit margin
-    there, from a full prefill (cache off) of the prompt and the tokens
-    both runs agree on: ``margin`` = logit[off's token] - logit[on's
-    token], ``top2`` = the gap between the two largest logits, and both
-    over max |logit|, to set beside bf16's rounding (2^-8 = 0.0039).
-    Recorded, not gated."""
+def near_ties(params, cfg, device, prompts, on, off,
+              names=("on", "off")) -> list:
+    """For each request whose greedy tokens differ between two runs
+    (``on`` and ``off``, named ``names``): the first index where they
+    differ and the f32 logit margin there, from a full prefill by a
+    one-device engine of the prompt and the tokens both runs agree on:
+    ``margin`` = logit[off's token] - logit[on's token], ``top2`` = the
+    gap between the two largest logits, and both over max |logit|
+    (``margin_rel``), to set beside bf16's rounding (2^-8 = 0.0039)."""
     eng = DecodeEngine(params, cfg, device=device,
                        **dict(ENGINE, prompt_buckets=(32, 128, 512, 1024)))
     out = []
@@ -869,8 +958,8 @@ def prefix_near_ties(params, cfg, device, prompts, on, off) -> list:
         top = row.topk(2).values
         scale = row.abs().max().item()
         margin = (row[b[i]] - row[a[i]]).item()
-        out.append({"uid": uid, "index": i, "token_on": a[i],
-                    "token_off": b[i], "margin": margin,
+        out.append({"uid": uid, "index": i, f"token_{names[0]}": a[i],
+                    f"token_{names[1]}": b[i], "margin": margin,
                     "top2": (top[0] - top[1]).item(), "max_abs_logit": scale,
                     "margin_rel": abs(margin) / scale})
     del eng
@@ -902,6 +991,357 @@ def prefix_check(eng, prompts) -> dict:
                            f"{PREFIX_TOL}")
     return {"logit_err": err, "group": len(group),
             "suffix_prefill_ms": cached_ms, "full_prefill_ms": full_ms}
+
+# ------------------------------------------- tensor-parallel serving (tp 2)
+# the tp-2 engine's prefill logits on rank 0 against the tp-1 engine's, max
+# |tp2 - tp1| / max |tp1| (set before the first run on the card)
+TP_LOGIT_TOL = 5e-2
+# where tp 2's greedy tokens part from tp 1's: the tp-1 logit margin
+# between the two tokens over max |logit| above this fails (bf16 rounds at
+# 2^-8 = 0.0039 relative)
+TP_TIE_LIMIT = 2e-2
+TP_FAULTS = ("attn_psum_skipped", "kv_shard_of_rank0",
+             "vocab_gather_reversed")
+TP_BUDGET_S = 600.0
+TP_F32_SEED = 11
+
+
+def serve_argv(tp: int) -> list:
+    """The serving CLI's command for ``MODEL`` under ``ENGINE`` with seed 0
+    (main's weights) on a free port; ``tp`` ranks over gloo (sharing the
+    card) unless 0."""
+    m, e = MODEL, ENGINE
+    argv = [sys.executable, "-m", "kungfu_tpu_torch.serving",
+            "--vocab", m["vocab_size"], "--d-model", m["d_model"],
+            "--n-heads", m["n_heads"], "--n-kv-heads", m["n_kv_heads"],
+            "--n-layers", m["n_layers"], "--d-ff", m["d_ff"],
+            "--max-seq", m["max_seq"], "--rope", "--swiglu", "--seed", 0,
+            "--slots", e["num_slots"], "--block", e["block_size"],
+            "--blocks", e["num_blocks"], "--max-len", e["max_len"],
+            "--chunk", e["decode_chunk"],
+            "--buckets", ",".join(map(str, e["prompt_buckets"])),
+            "--port", 0]
+    if tp:
+        argv += ["--tp", tp, "--backend", "gloo"]
+    return [str(a) for a in argv]
+
+
+@contextlib.contextmanager
+def cli_server(argv, log_path: str, timeout: float = TP_BUDGET_S):
+    """The serving CLI ``argv`` as a process in a session of its own
+    (stderr to ``log_path``): yields its base URL once it prints its
+    readiness line.  On the way out it gets SIGTERM and must exit 0
+    within 120 s; its process group is killed whatever happens."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(argv, cwd=here,
+                                env=dict(os.environ, PYTHONPATH=here),
+                                stdout=subprocess.PIPE, stderr=log,
+                                text=True, start_new_session=True)
+
+    def tail():
+        with open(log_path) as f:
+            return f.read()[-3000:]
+    try:
+        line = []
+        reader = threading.Thread(
+            target=lambda: line.append(proc.stdout.readline()), daemon=True)
+        reader.start()
+        reader.join(timeout)
+        if not line or not line[0].startswith("SERVING ready on"):
+            raise RuntimeError(f"the serving CLI did not start: {line}\n"
+                               f"{tail()}")
+        yield "http://" + line[0].split()[-1]
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=120) != 0:
+            raise RuntimeError(f"the serving CLI exited {proc.returncode}"
+                               f"\n{tail()}")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+@contextlib.contextmanager
+def tp_fault(fault, eng, full):
+    """A fault planted in this tp rank for the block: "attn_psum_skipped",
+    layer 0's attention-output all-reduce is skipped; "kv_shard_of_rank0",
+    rank 1 holds rank 0's KV-head shard of wk and wv; "vocab_gather_
+    reversed", the vocabulary blocks of the logits join in reverse rank
+    order.  ``full``: the unsharded parameter tree."""
+    finish, gather = G._decode_finish, G._tp_gather
+    saved = [(layer["wk"], layer["wv"]) for layer in eng.params["layers"]]
+    if fault == "attn_psum_skipped":
+        calls = [0]
+
+        def finish_(layer, x, o, cfg, psum=None):
+            calls[0] += 1
+            if (calls[0] - 1) % cfg.n_layers or psum is None:
+                return finish(layer, x, o, cfg, psum)
+            skip = [True]              # the attention output's psum
+
+            def psum_(t):
+                if skip:
+                    skip.pop()
+                    return t
+                return psum(t)
+            return finish(layer, x, o, cfg, psum_)
+        G._decode_finish = finish_
+    elif fault == "kv_shard_of_rank0":
+        if eng.rank == 1:
+            for layer, src in zip(eng.params["layers"], full["layers"]):
+                for k in ("wk", "wv"):
+                    layer[k] = src[k].chunk(2, dim=1)[0].to(
+                        eng.cfg.dtype).contiguous()
+    elif fault == "vocab_gather_reversed":
+        def gather_(t, group):
+            parts = gather(t, group).chunk(dist.get_world_size(group), -1)
+            return torch.cat(parts[::-1], dim=-1)
+        G._tp_gather = gather_
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        G._decode_finish, G._tp_gather = finish, gather
+        for layer, (k, v) in zip(eng.params["layers"], saved):
+            layer["wk"], layer["wv"] = k, v
+
+
+def tp_logits_worker(rank: int, world: int, tmp: str) -> None:
+    """One rank of ``tp_logit_check``: the 470m engine at tp ``world`` over
+    gloo on the card (main's seed-0 weights, ``ENGINE``); the prefill
+    logits of the serve traffic's first 8 prompts, sound and with each of
+    ``TP_FAULTS`` planted; rank 0 saves them."""
+    from kungfu_tpu_torch.comm.mesh import serving_mesh
+    device = _join(rank, world, tmp)
+    cfg = G.GPTConfig(**MODEL, dtype=torch.bfloat16)
+    full = G.init_params(torch.Generator(device=device).manual_seed(0), cfg)
+    eng = DecodeEngine(full, cfg, device=device, mesh=serving_mesh(world),
+                       **ENGINE)
+    prompts = serve_prompts(cfg)[:ENGINE["num_slots"]]
+    out = {}
+    for fault in (None,) + TP_FAULTS:
+        with tp_fault(fault, eng, full):
+            out[fault or "sound"] = _prefix_logits(eng, prompts, None,
+                                                   0)[0].cpu()
+    if rank == 0:
+        torch.save(out, os.path.join(tmp, "logits.pt"))
+    dist.destroy_process_group()
+
+
+def tp_logit_check(params, cfg, device, tmp: str) -> dict:
+    """Rank 0's prefill logits at tp 2 (:func:`tp_logits_worker`) against
+    the tp-1 engine's on the same prompts and blocks: the sound run within
+    ``TP_LOGIT_TOL`` of max |logit|, each planted fault above it."""
+    _spawn([_worker_argv("tp_logits_worker", r, 2, tmp) for r in range(2)],
+           TP_BUDGET_S, tmp)
+    got = torch.load(os.path.join(tmp, "logits.pt"))
+    eng = DecodeEngine(params, cfg, device=device, **ENGINE)
+    want = _prefix_logits(eng, serve_prompts(cfg)[:ENGINE["num_slots"]],
+                          None, 0)[0].float().cpu()
+    del eng
+    scale = want.abs().max().item()
+    err = {k: (v.float() - want).abs().max().item() / scale
+           for k, v in got.items()}
+    if err["sound"] > TP_LOGIT_TOL or min(err[f] for f in TP_FAULTS) \
+            <= TP_LOGIT_TOL:
+        raise RuntimeError(f"tp-2 prefill logits: {err} against the limit "
+                           f"{TP_LOGIT_TOL}")
+    return {"logit_err": err, "limit": TP_LOGIT_TOL, "rows": len(want)}
+
+
+def phase_serve_470m_tp2(params, cfg, device, tp1: dict) -> dict:
+    """The 470m served at tp 2 through ``python -m kungfu_tpu_torch.serving
+    --tp 2 --backend gloo`` (2 ranks sharing the card, ``ENGINE``, seed 0:
+    ``serve_470m``'s weights) to ``serve_470m``'s 16 streamed requests.
+    ``tp1``: serve_470m's record (its tokens and weight bytes).
+
+    Counts are read from ``GET /stats`` before the clients start and
+    after they finish (each rank's counters ride in the token check).
+    Gates: :func:`check_traffic`'s; on each rank, K5 launched exactly
+    layers x chunk x decode dispatches times; rank 0's prefill logits
+    against tp 1's (:func:`tp_logit_check`, three planted faults above
+    its limit); where a request's greedy tokens part from tp 1's, the
+    tp-1 margin there within ``TP_TIE_LIMIT``."""
+    prompts = serve_prompts(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        with cli_server(serve_argv(2), os.path.join(tmp, "cli.log")) as base:
+            run = drive_traffic(base, prompts, 64, [1, 2, 3],
+                                lambda: _get(base + "/stats"))
+        out = check_traffic(run, 64, cfg.vocab_size)
+        check = tp_logit_check(params, cfg, device, tmp)
+    tokens = out.pop("tokens")
+    before, after = run["before"], run["stats"]
+    dispatches = after["dispatches"] - before["dispatches"]
+    prefills = after["prefills"] - before["prefills"]
+    need = cfg.n_layers * ENGINE["decode_chunk"] * dispatches
+    V, D = cfg.vocab_size, cfg.d_model
+    # f32 wte, lnf and lm_head: whole on tp 1; the rank's half of lm_head
+    rest1, rest2 = (2 * V * D + D) * 4, (V * D + V * D // 2 + D) * 4
+    ranks = []
+    for r, (b, a) in enumerate(zip(before["tp_ranks"], after["tp_ranks"])):
+        k5 = a["k5_launches"] - b["k5_launches"]
+        if k5 != need or k5 == 0:
+            raise RuntimeError(f"rank {r}: K5 launched {k5} times, decode "
+                               f"needed {need} ({cfg.n_layers} layers x "
+                               f"{dispatches} dispatches x chunk "
+                               f"{ENGINE['decode_chunk']})")
+        coll = a["collective_s"] - b["collective_s"]
+        ranks.append({
+            "rank": r, "k5_launches": int(k5), "k5_launches_needed": need,
+            "collective_s": coll,
+            "collective_s_per_program": coll / (dispatches + prefills),
+            "weight_bytes": int(a["weight_bytes"]),
+            "layer_bytes_vs_tp1": (a["weight_bytes"] - rest2)
+            / (tp1["weight_bytes"] - rest1),
+            "peak_gb": a["peak_bytes"] / 1e9})
+    ties = near_ties(params, cfg, device, prompts, tokens, tp1["tokens"],
+                     names=("tp2", "tp1"))
+    wide = [t for t in ties if not t.get("margin_rel", 1.0) <= TP_TIE_LIMIT]
+    if wide:
+        raise RuntimeError(f"tp 2 parts from tp 1 where tp 1's margin is "
+                           f"above {TP_TIE_LIMIT}: {wide}")
+    return dict(out, dispatches=dispatches, prefills=prefills, ranks=ranks,
+                logit_check=check, tp1_tokens_per_s=tp1["tokens_per_s"],
+                tp1_mean_ttft_s=tp1["mean_ttft_s"],
+                tp1_weight_bytes=tp1["weight_bytes"],
+                tokens_equal_tp1=sum(a == b for a, b in zip(
+                    tokens, tp1["tokens"])), near_ties=ties,
+                tie_limit=TP_TIE_LIMIT)
+
+
+def tp_f32_cases(cfg) -> dict:
+    """``tp2_f32_2l``'s engine runs: name -> (settings over ``ENGINE``,
+    request batches): int8 weights + int8 KV + speculative 3 on
+    ``phase_variant``'s repetitive prompts, and :func:`prefix_cases`
+    with the cache on."""
+    rng = np.random.RandomState(3)
+    spec = [dict(uid=i, prompt=(rng.randint(0, 64, 6).tolist() * 40)
+                 [:int(rng.randint(8, 200))], max_new=32) for i in range(4)]
+    cases = {"int8w_kvint8_spec3": (dict(weights_int8=True,
+                                         kv_dtype=torch.int8,
+                                         speculative=3), [spec])}
+    for name, (kw, batches) in prefix_cases(cfg).items():
+        cases[f"prefix_{name}"] = (dict(kw, prefix_cache=True,
+                                        prefill_group=1), batches)
+    return cases
+
+
+def tp_f32_prompt(cfg):
+    return np.random.RandomState(12).randint(0, cfg.vocab_size, (2, 16))
+
+
+def tp_f32_model(device):
+    cfg = G.GPTConfig(**dict(MODEL, n_layers=2), dtype=torch.float32)
+    return cfg, G.init_params(
+        torch.Generator(device=device).manual_seed(TP_F32_SEED), cfg)
+
+
+def run_batches(eng, batches) -> dict:
+    out = {}
+    for reqs in batches:
+        out.update({str(u): t for u, t in eng.run(
+            [Request(**r) for r in reqs]).items()})
+    return out
+
+
+def tp_f32_worker(rank: int, world: int, tmp: str) -> None:
+    """One rank of ``tp2_f32_2l``: each :func:`tp_f32_cases` engine at tp
+    ``world`` over gloo on the card, and ``make_tp_generate``; rank 0
+    saves the tokens, the stats and each rank's K5 launches."""
+    from kungfu_tpu_torch.comm.mesh import serving_mesh
+    from kungfu_tpu_torch.parallel.threed import (make_tp_generate,
+                                                  shard_params)
+    device = _join(rank, world, tmp)
+    cfg, params = tp_f32_model(device)
+    out = {}
+    for name, (kw, batches) in tp_f32_cases(cfg).items():
+        eng = DecodeEngine(params, cfg, device=device,
+                           mesh=serving_mesh(world), **dict(ENGINE, **kw))
+        if rank:
+            eng.follow()
+            continue
+        start = [r["k5_launches"] for r in eng.stats.ranks]
+        tokens = run_batches(eng, batches)
+        eng.close()
+        out[name] = {"tokens": tokens, "k5": [
+            r["k5_launches"] - s for r, s in zip(eng.stats.ranks, start)],
+            "stats": {k: getattr(eng.stats, k) for k in (
+                "prefix_hits", "prefix_tokens_reused", "preemptions",
+                "prefills", "dispatches", "spec_accepted")}}
+    mesh = serving_mesh(world)
+    fn = make_tp_generate(cfg, mesh, 16, max_len=64)
+    got = fn(shard_params(params, cfg, mesh),
+             torch.from_numpy(tp_f32_prompt(cfg)).to(device))
+    if rank == 0:
+        out["generate"] = got.cpu().tolist()
+        with open(os.path.join(tmp, "out.json"), "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def tp_nccl_world1(device, cfg, params, kw, batches) -> dict:
+    """The tp engine over NCCL at a world of one (NCCL refuses two ranks
+    on one card), in this process: its tokens for ``batches``."""
+    from kungfu_tpu_torch.comm.mesh import (init_process_group_file,
+                                            serving_mesh)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group_file(os.path.join(tmp, "store"), 0, 1, "nccl")
+        try:
+            eng = DecodeEngine(params, cfg, device=device,
+                               mesh=serving_mesh(1), **dict(ENGINE, **kw))
+            tokens = run_batches(eng, batches)
+            eng.close()
+        finally:
+            dist.destroy_process_group()
+    return tokens
+
+
+def phase_tp2_f32(device) -> dict:
+    """Full width, 2 layers, f32, tp 2 over gloo on the card
+    (:func:`tp_f32_worker`) against tp 1 in this process: each
+    :func:`tp_f32_cases` case's greedy tokens, stats and K5 launches (on
+    each rank, tp 1's count) equal, :func:`prefix_gate` on the tp-2 run;
+    ``make_tp_generate``'s tokens equal ``G.generate``'s; the first case
+    over NCCL at a world of one (:func:`tp_nccl_world1`) gives tp 1's
+    tokens too."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _spawn([_worker_argv("tp_f32_worker", r, 2, tmp) for r in range(2)],
+               TP_BUDGET_S, tmp)
+        with open(os.path.join(tmp, "out.json")) as f:
+            got = json.load(f)
+    cfg, params = tp_f32_model(device)
+    out, first = {}, None
+    for name, (kw, batches) in tp_f32_cases(cfg).items():
+        eng = DecodeEngine(params, cfg, device=device, **dict(ENGINE, **kw))
+        before = PA.launches
+        want = run_batches(eng, batches)
+        first = first or (kw, batches, want)
+        k5 = PA.launches - before
+        rec = got[name]
+        st = {k: getattr(eng.stats, k) for k in rec["stats"]}
+        if rec["tokens"] != want or rec["stats"] != st or any(
+                n != k5 for n in rec["k5"]) or not k5:
+            raise RuntimeError(f"tp2 {name}: {rec['stats']} K5 {rec['k5']} "
+                               f"against tp 1's {st} K5 {k5}; tokens equal:"
+                               f" {rec['tokens'] == want}")
+        if name.startswith("prefix_"):
+            prefix_gate(name[len("prefix_"):], eng.stats)
+        out[name] = dict(rec["stats"], k5_launches=rec["k5"])
+    want = G.generate(params, cfg, torch.from_numpy(tp_f32_prompt(cfg)).to(
+        device), 16, max_len=64).cpu().tolist()
+    if got["generate"] != want:
+        raise RuntimeError(f"make_tp_generate {got['generate']} != "
+                           f"G.generate {want}")
+    kw, batches, want = first
+    if tp_nccl_world1(device, cfg, params, kw, batches) != want:
+        raise RuntimeError("the tp engine over NCCL at a world of one "
+                           "differs from tp 1")
+    return {"cases": out, "tokens_equal": True, "generate_equal": True,
+            "nccl_world1_equal": True}
 
 
 # ------------------------------------------------ phase 5: K1-K4 (flash)
@@ -2430,8 +2870,9 @@ ELASTIC_NCCL_VERSIONS = 3
 ELASTIC_NCCL_MARGIN = 16 << 20
 ELASTIC_SCHEDULE = "2:3,4:3,3:3"
 # depth cut from the preset's 24 layers: at 24 the two elastic phases took
-# 203-212 s on the H100, over their 180 s budget (PERF.md, PR 12)
-ELASTIC_LAYERS = 12
+# 203-212 s on the H100, over their 180 s budget (PERF.md, PR 12); 6, not
+# 12, leaves the whole script room for the tp serving phases
+ELASTIC_LAYERS = 6
 ELASTIC_ROWS = 12                # global batch, sequences of 2048 tokens
 ELASTIC_SAVE_AT = 6              # the checkpoint the fault job resumes
 # |elastic - one-process| mean loss of a step (bf16 compute: the ranks
@@ -3634,10 +4075,24 @@ def main() -> int:
         emit({"phase": "parallel_gpt_470m",
               **phase_parallel_gpt_470m(device, smi)})
         return 0
+    if sys.argv[1:] == ["--serving-tp"]:
+        phase_k5_tp2(device)
+        cfg = G.GPTConfig(**MODEL, dtype=torch.bfloat16)
+        params = G.init_params(
+            torch.Generator(device=device).manual_seed(0), cfg)
+        serve = phase_serve(params, cfg, device)
+        emit({"phase": "serve_470m", **{k: v for k, v in serve.items()
+                                        if k != "tokens"}})
+        emit({"phase": "serve_470m_tp2",
+              **phase_serve_470m_tp2(params, cfg, device, serve)})
+        del params
+        emit({"phase": "tp2_f32_2l", **phase_tp2_f32(device)})
+        return 0
 
     k5_errs = phase_kernel(device)
     emit({"phase": "k5_faults", **phase_k5_faults(device)})
     k5 = phase_k5_time(device)["a_bf16_q1"]
+    k5_tp2 = phase_k5_tp2(device)
 
     cfg = G.GPTConfig(**MODEL, dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -3649,8 +4104,8 @@ def main() -> int:
     emit({"phase": "init_470m", "seconds": time.perf_counter() - t0,
           "params": n_params})
     serve = phase_serve(params, cfg, device)
-    serve.pop("tokens")
-    emit({"phase": "serve_470m", **serve})
+    emit({"phase": "serve_470m", **{k: v for k, v in serve.items()
+                                    if k != "tokens"}})
     emit({"phase": "profile_470m", **phase_profile(params, cfg, device)})
     emit({"phase": "serve_470m_int8w", **phase_serve_int8w(
         params, cfg, device, serve["weight_bytes"])})
@@ -3658,6 +4113,9 @@ def main() -> int:
         params, cfg, device, weights_int8=True)})
     emit({"phase": "serve_470m_prefix",
           **phase_serve_prefix(params, cfg, device)})
+    torch.cuda.empty_cache()
+    serve_tp2 = phase_serve_470m_tp2(params, cfg, device, serve)
+    emit({"phase": "serve_470m_tp2", **serve_tp2})
     del params
     small = G.GPTConfig(**dict(MODEL, n_layers=4), dtype=torch.bfloat16)
     params = G.init_params(torch.Generator(device=device).manual_seed(1),
@@ -3673,6 +4131,7 @@ def main() -> int:
     emit({"phase": "fused_vs_gather_f32_2l",
           **phase_fused_vs_gather(device)})
     emit({"phase": "prefix_f32_2l", **phase_prefix_f32(device)})
+    emit({"phase": "tp2_f32_2l", **phase_tp2_f32(device)})
 
     phase_flash_check(device)
     emit({"phase": "flash_faults", **phase_flash_faults(device)})
@@ -3724,7 +4183,13 @@ def main() -> int:
         "launches": serve["k5_launches"],
         "max_abs_err": k5_errs["a_bf16_q1"], "ms": k5["ms"],
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
-        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"]}]
+        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
+        # the tp-2 shard's row a, and its launches on each rank of
+        # serve_470m_tp2
+        "tp2": dict({k: k5_tp2["tp2_bf16_q1"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}, launches=[r["k5_launches"]
+                                      for r in serve_tp2["ranks"]])}]
     for name, line in FLASH_REPLACES.items():
         rec = flash["470m"][name]
         kernels.append({

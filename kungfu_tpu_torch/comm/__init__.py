@@ -6,4 +6,4 @@ from .collectives import (all_gather, all_reduce, all_to_all,  # noqa: F401
                           pmax, ppermute, reduce_from_group, reduce_scatter,
                           reduce_to_root, ring_exchange)
 from .mesh import (PEER_AXIS, ProcessMesh, flat_mesh,  # noqa: F401
-                   init_process_group_file, make_mesh)
+                   init_process_group_file, make_mesh, serving_mesh)

@@ -6,8 +6,11 @@ group of that axis: NCCL on the card, gloo on the CPU.  The flat peer
 axis is :func:`flat_mesh`; an N-D mesh such as (dp, sp, tp) is a
 :class:`ProcessMesh` (:func:`make_mesh`), which holds this rank's
 coordinates and one group per axis and per combination of axes that a
-caller asks for.  Nothing here discovers a cluster; the caller gives the
-rendezvous, its rank and the world size (:func:`init_process_group_file`).
+caller asks for; :func:`serving_mesh` adds a gloo **control group** over
+the mesh's ranks for host messages (tensor-parallel serving's
+commands).  Nothing here discovers a cluster; the caller
+gives the rendezvous, its rank and the world size
+(:func:`init_process_group_file`).
 """
 from __future__ import annotations
 
@@ -22,6 +25,12 @@ import torch
 import torch.distributed as dist
 
 PEER_AXIS = "kf_peers"      # flat data-parallel axis
+TP_AXIS = "tp"
+
+# the control group's collective timeout: a follower waits for its next
+# command as long as the server idles (a dead peer still fails the wait
+# at once: gloo closes its sockets)
+CONTROL_TIMEOUT = datetime.timedelta(days=3650)
 
 
 def init_process_group_file(path: str, rank: int, world: int,
@@ -66,11 +75,14 @@ class ProcessMesh:
     """This rank's place in an N-D mesh of ranks: the axis names and
     sizes, its coordinates, and the process group of each axis and each
     combination of axes that :func:`make_mesh` formed (keyed by the tuple
-    of axis names in mesh order; a single axis also by its name)."""
+    of axis names in mesh order; a single axis also by its name), and
+    ``control``: a gloo group over all the mesh's ranks for CPU tensors
+    with no practical timeout (:func:`serving_mesh`'s; else None)."""
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     coords: Tuple[int, ...]
     groups: Dict[Tuple[str, ...], object]
+    control: object = None
 
     def size(self, *axes: str) -> int:
         return math.prod(self.shape[self.axis_names.index(a)] for a in axes)
@@ -137,6 +149,21 @@ def make_mesh(axis_names: Sequence[str], shape: Sequence[int],
     if coords is None:
         return None
     return ProcessMesh(names, shape, coords, formed)
+
+
+def serving_mesh(n: int, timeout_s: Optional[float] = None
+                 ) -> Optional[ProcessMesh]:
+    """The tp-only mesh of tensor-parallel serving over the first ``n``
+    ranks (``make_mesh(("tp",), (n,))``) with its control group
+    (``ProcessMesh.control``: gloo whatever the default group's backend,
+    timed out only after ``CONTROL_TIMEOUT``).  The data group
+    (``mesh.group("tp")``) carries the programs' all-reduces and the
+    vocabulary gather; the control group carries rank 0's commands and
+    the token check.  Collective, as :func:`make_mesh`."""
+    mesh = make_mesh((TP_AXIS,), (n,), timeout_s=timeout_s)
+    ctl = dist.new_group(list(range(n)), backend="gloo",
+                         timeout=CONTROL_TIMEOUT)
+    return None if mesh is None else dataclasses.replace(mesh, control=ctl)
 
 
 def _ravel(coords, shape) -> int:

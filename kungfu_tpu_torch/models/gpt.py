@@ -12,8 +12,8 @@ layouts, so a JAX checkpoint or parameter tree carries over by name
 Numerics follow the JAX functions: activations in ``cfg.dtype``, norms and
 softmax in f32, logits f32 from the f32 ``lm_head``.  What is ported is
 the training forward (flash or dense attend, remat modes), the loss, the
-plain decode loop (the serving engine's oracle), and tensor and sequence
-parallelism in training.
+plain decode loop (the serving engine's oracle), tensor and sequence
+parallelism in training, and tensor parallelism in decode.
 
 Parallelism: where a JAX function takes the mesh axis names ``tp_axis``
 and ``sp_axis`` inside ``shard_map``, these take the process groups
@@ -23,7 +23,10 @@ vocabulary); a replicated activation enters a sharded product through
 ``copy_to_group`` and the partial products leave through
 ``reduce_from_group``, which places the all-reduces where JAX's psums and
 their transposes fall.  Under sp each rank holds a block of the sequence
-and rotates RoPE by its global positions.
+and rotates RoPE by its global positions.  Decode is forward only: its
+partial products are completed by plain all-reduces (:func:`_tp_sum`) and
+its vocabulary-sharded logits by one all-gather (:func:`tp_head`), with
+no autograd function in between.
 """
 from __future__ import annotations
 
@@ -457,16 +460,21 @@ def loss_fn(params, tokens, targets, cfg: GPTConfig):
 
 
 # --------------------------------------------------------------- generation
-def init_kv_cache(cfg: GPTConfig, batch: int, max_len: Optional[int] = None,
-                  device=None):
-    """Per-layer KV cache: k/v [B, max_len, kv_heads, Dh] in the model
-    dtype."""
-    L = max_len or cfg.max_seq
+def _check_cache_len(cfg: GPTConfig, L: int) -> None:
     if L > cfg.max_seq and not cfg.rope:
         raise ValueError(f"cache length {L} exceeds max_seq {cfg.max_seq} "
                          f"(wpe has no embeddings past it; RoPE models "
                          f"have no such bound)")
-    shape = (batch, L, cfg.kv_heads, cfg.head_dim)
+
+
+def init_kv_cache(cfg: GPTConfig, batch: int, max_len: Optional[int] = None,
+                  device=None, tp: int = 1):
+    """Per-layer KV cache: k/v [B, max_len, kv_heads / tp, Dh] in the model
+    dtype (a tp rank holds its shard of the KV heads)."""
+    L = max_len or cfg.max_seq
+    _check_cache_len(cfg, L)
+    validate_tp(cfg, tp)
+    shape = (batch, L, cfg.kv_heads // tp, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
             for _ in range(cfg.n_layers)]
@@ -487,9 +495,42 @@ def _decode_attend(q, kc, vc, pos):
     return torch.einsum("bhqk,bkhd->bqhd", p, vc.float()).to(q.dtype)
 
 
-def _decode_hidden(params, cfg: GPTConfig, cache, pos: int, token):
+def _tp_sum(t, tp_group):
+    """Complete a partial product over ``tp_group`` in place: one plain
+    all-reduce (sum), forward only (the decode programs' ``lax.psum``)."""
+    dist.all_reduce(t, group=tp_group)
+    return t
+
+
+def _tp_gather(t, tp_group):
+    """Join each rank's block of the last axis in rank order: one
+    all-gather, forward only (``lax.all_gather(..., tiled=True)``)."""
+    parts = [torch.empty_like(t)
+             for _ in range(dist.get_world_size(tp_group))]
+    dist.all_gather(parts, t.contiguous(), group=tp_group)
+    return torch.cat(parts, dim=-1)
+
+
+def _decode_finish(layer, x, o, cfg: GPTConfig, psum=None):
+    """:func:`_layer_finish` for decode: forward only, and under tp
+    ``psum(t)`` completes the rank's partial attention-output and FFN
+    products in place (JAX's psums in ``_layer_finish`` and
+    ``_dense_ffn``); the same arithmetic without it."""
+    a = torch.einsum("bthk,hkd->btd", o, layer["wo"].to(cfg.dtype))
+    x = x + (a if psum is None else psum(a))
+    m = _dense_ffn(layer, rms_norm(x, layer["ln2"]), cfg)
+    return x + (m if psum is None else psum(m))
+
+
+def _decode_hidden(params, cfg: GPTConfig, cache, pos: int, token,
+                   tp_group=None):
     """One incremental step through the layer stack (no lm_head); writes
-    this position's K/V into ``cache`` in place.  Returns x [B, 1, D]."""
+    this position's K/V into ``cache`` in place.  Returns x [B, 1, D].
+    Under ``tp_group`` the parameters and the cache hold the rank's head
+    shard and each layer's partial products are summed over the group,
+    so x is the same on every rank."""
+    psum = (None if tp_group is None
+            else lambda t: _tp_sum(t, tp_group))
     x = embed(params, token[:, None], pos, cfg)               # [B, 1, D]
     pos1 = torch.tensor([pos], device=x.device)
     for layer, kv in zip(params["layers"], cache):
@@ -498,7 +539,7 @@ def _decode_hidden(params, cfg: GPTConfig, cache, pos: int, token):
         kv["v"][:, pos] = v[:, 0]
         o = _decode_attend(q, _expand_kv(kv["k"], cfg),
                            _expand_kv(kv["v"], cfg), pos)
-        x = _layer_finish(layer, x, o, cfg)
+        x = _decode_finish(layer, x, o, cfg, psum)
     return rms_norm(x, params["lnf"])
 
 
@@ -509,6 +550,17 @@ def _head(params, x):
                         params["lm_head"].float())[:, 0]
 
 
+def tp_head(params, x, tp_group=None):
+    """f32 logits [B, V] from x [B, 1, D] under optional tensor
+    parallelism: the rank's vocabulary block (lm_head splits on its
+    columns, :func:`param_specs`) is all-gathered over ``tp_group`` in
+    rank order, so every rank holds the same logits and picks the same
+    token.  The one tp logits head of every decode path (the serving
+    engine, :func:`generate` under tp)."""
+    local = _head(params, x)
+    return local if tp_group is None else _tp_gather(local, tp_group)
+
+
 @torch.no_grad()
 def decode_step(params, cfg: GPTConfig, cache, pos: int, token):
     """One incremental decode step: ``token`` [B] at position ``pos``.
@@ -517,31 +569,41 @@ def decode_step(params, cfg: GPTConfig, cache, pos: int, token):
 
 
 @torch.no_grad()
-def prefill(params, cfg: GPTConfig, cache, tokens):
+def prefill(params, cfg: GPTConfig, cache, tokens, tp_group=None,
+            head=None):
     """Fill the cache from a prompt [B, T] by T incremental steps;
-    returns the last position's logits.  The lm_head runs once."""
+    returns the last position's logits.  The lm_head runs once.
+    ``head(x)`` replaces the logits head (under tp, :func:`tp_head`)."""
     x = None
     for t in range(tokens.shape[1]):
-        x = _decode_hidden(params, cfg, cache, t, tokens[:, t])
-    return _head(params, x)
+        x = _decode_hidden(params, cfg, cache, t, tokens[:, t], tp_group)
+    return (head or (lambda x: _head(params, x)))(x)
 
 
 @torch.no_grad()
 def generate(params, cfg: GPTConfig, prompt, n_tokens: int,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             max_len: Optional[int] = None):
+             max_len: Optional[int] = None, cache=None, tp_group=None,
+             head=None):
     """Autoregressive generation (greedy, or sampled from ``generator``
     when temperature > 0).  ``prompt`` [B, T] int; returns [B, n_tokens]
-    int32 on the prompt's device."""
+    int32 on the prompt's device.
+
+    The one decode loop: tensor-parallel generation
+    (``parallel.threed.make_tp_generate``) passes the rank's ``cache``
+    shard, ``tp_group`` and the gathered ``head``."""
     B, T = prompt.shape
-    cache = init_kv_cache(cfg, B, max_len or cfg.max_seq,
-                          device=prompt.device)
+    if cache is None:
+        cache = init_kv_cache(cfg, B, max_len or cfg.max_seq,
+                              device=prompt.device)
     L = cache[0]["k"].shape[1]
+    _check_cache_len(cfg, L)
     if T + n_tokens > L:
         raise ValueError(f"prompt {T} + {n_tokens} new tokens exceeds "
                          f"cache length {L}")
-    logits = prefill(params, cfg, cache, prompt)
+    head = head or (lambda x: _head(params, x))
+    logits = prefill(params, cfg, cache, prompt, tp_group, head)
     toks = []
     for i in range(n_tokens):
         if temperature > 0:
@@ -552,6 +614,6 @@ def generate(params, cfg: GPTConfig, prompt, n_tokens: int,
         tok = tok.to(torch.int32)
         toks.append(tok)
         if i + 1 < n_tokens:
-            logits = _head(params, _decode_hidden(params, cfg, cache,
-                                                  T + i, tok))
+            logits = head(_decode_hidden(params, cfg, cache, T + i, tok,
+                                         tp_group))
     return torch.stack(toks, dim=1)

@@ -95,6 +95,23 @@ def quantize_weights(params, exclude: Sequence[str] = ("wte", "wpe"),
             for k, v in params.items()}
 
 
+def quantize_specs(params_q, specs):
+    """The split dimensions (``models.gpt.param_specs``) of a
+    :func:`quantize_weights` output: a QuantizedTensor leaf's becomes
+    ``QuantizedTensor(weight_dim, scale_dim)``, where the scale splits on
+    the weight's dimension unless its size there is 1 (replicated: None).
+    Quantization reduces over leading axes of the full tree, so a shard's
+    dequant equals the slice of the full dequant; quantize first, then
+    shard (``parallel.threed.shard_params``)."""
+    def f(leaf, dim):
+        if not isinstance(leaf, QuantizedTensor):
+            return dim
+        sdim = (None if dim is None or leaf.scale.shape[dim] == 1
+                else dim)
+        return QuantizedTensor(dim, sdim)
+    return tree_map(f, params_q, specs)
+
+
 def dequantize_weights(params, dtype):
     """Inverse of :func:`quantize_weights`: QuantizedTensor leaves become
     ``dtype`` tensors, everything else passes through.  The engine calls

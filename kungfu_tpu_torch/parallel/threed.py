@@ -7,7 +7,8 @@
   too.
 - ``tp``: tensor parallelism; heads, FFN features and the vocabulary are
   sharded, and activations are completed by all-reduces inside the model
-  (``models/gpt.py``).
+  (``models/gpt.py``).  :func:`make_tp_generate` decodes over the same
+  shards.
 
 Each rank is a process that holds its slices of the parameters
 (:func:`shard_params`, per ``models.gpt.param_specs``) as f32 leaf
@@ -36,6 +37,7 @@ from .. import ops
 from ..comm import collectives as C
 from ..comm.mesh import ProcessMesh, make_mesh
 from ..models import gpt as G
+from ..ops.quant import QuantizedTensor, quantize_specs
 from ..training import _accum_grads_fn, _update
 from ..utils.device import resolve_device
 from ..utils.tree import tree_map
@@ -62,16 +64,21 @@ def mesh_3d(dp: int, sp: int, tp: int,
 def shard_params(params, cfg: G.GPTConfig, mesh: Optional[ProcessMesh]):
     """This rank's slices of a full parameter tree, as new tensors: the
     tp rank's block of each dimension ``param_specs`` names, the whole of
-    a replicated leaf."""
+    a replicated leaf.  An int8 leaf (``ops.quant.QuantizedTensor``, of
+    the full tree) splits its q and its scale as ``quantize_specs``
+    says."""
     ntp = mesh.size(TP_AXIS) if mesh is not None else 1
     t = mesh.index(TP_AXIS) if mesh is not None else 0
     G.validate_tp(cfg, ntp)
 
     def take(x, dim):
+        if isinstance(x, QuantizedTensor):
+            return QuantizedTensor(take(x.q, dim.q), take(x.scale, dim.scale))
         if dim is None or ntp == 1:
             return x.clone()
         return x.chunk(ntp, dim=dim)[t].clone()
-    return tree_map(take, params, G.param_specs(cfg))
+    return tree_map(take, params, quantize_specs(params,
+                                                 G.param_specs(cfg)))
 
 
 def init_gpt(cfg: G.GPTConfig, mesh: Optional[ProcessMesh], seed: int = 0,
@@ -162,3 +169,33 @@ def make_gpt_train_step(cfg: G.GPTConfig, optimizer: torch.optim.Optimizer,
         return loss
 
     return step
+
+
+def make_tp_generate(cfg: G.GPTConfig, mesh: ProcessMesh, n_tokens: int,
+                     temperature: float = 0.0,
+                     max_len: Optional[int] = None) -> Callable:
+    """Tensor-parallel generation: ``fn(params, prompt, generator=None)
+    -> [B, n_tokens]`` int32, where ``params`` are this rank's shards
+    (:func:`shard_params`, or the masters :func:`make_gpt_train_step`
+    trained) and ``prompt`` [B, T] is the same on every rank.  Collective:
+    every rank of the mesh's tp group calls it and gets the same tokens.
+
+    The rank's KV cache holds its KV-head shard, each layer's partial
+    products are summed over tp, and every step all-gathers the
+    vocabulary-sharded logits (:func:`models.gpt.tp_head`), so each rank
+    picks the same token; sampled (``temperature`` > 0) from a
+    ``generator`` seeded alike on every rank."""
+    ntp = mesh.size(TP_AXIS)
+    G.validate_tp(cfg, ntp)
+    group = mesh.group(TP_AXIS)
+    L = max_len or cfg.max_seq
+
+    def fn(params, prompt, generator=None):
+        cache = G.init_kv_cache(cfg, prompt.shape[0], L,
+                                device=prompt.device, tp=ntp)
+        return G.generate(params, cfg, prompt, n_tokens,
+                          temperature=temperature, generator=generator,
+                          cache=cache, tp_group=group,
+                          head=lambda x: G.tp_head(params, x, group))
+
+    return fn

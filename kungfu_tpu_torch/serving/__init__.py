@@ -7,6 +7,11 @@ and CUDA (counterpart of kungfu_tpu/serving).
                        weights_int8=True, prefix_cache=True)
     results = eng.run([Request(uid=0, prompt=[...], max_new=64), ...])
     print(eng.stats.summary())
+
+Tensor parallelism: every rank of a process group builds
+``DecodeEngine(params, cfg, mesh=comm.mesh.serving_mesh(n), ...)``; rank
+0 drives it as above and the others call ``eng.follow()``
+(``serving/tp.py``; ``python -m kungfu_tpu_torch.serving --tp n``).
 """
 from .cache import (init_paged_pools, paged_decode_attend, paged_gather,
                     paged_write_prompt, paged_write_token)

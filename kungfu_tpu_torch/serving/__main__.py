@@ -11,21 +11,38 @@ on ``cuda`` (bf16) unless ``--device cpu`` (f32) is given.
 ``--weights-int8 [--weights-int8-min-size N]`` stores the weights as
 int8, ``--prefix-cache`` shares prompt-prefix KV blocks, and
 ``GET /requests?n=`` serves the request journal.
+
+``--tp N`` serves tensor-parallel over N ranks, one process each: this
+process is rank 0 (the scheduler and the HTTP server) and starts ranks
+1..N-1 itself, joined through a ``FileStore`` in a temporary directory.
+``--backend nccl`` (default) puts rank r on ``cuda:r`` and needs N
+visible cards; ``--backend gloo`` puts every rank on ``--device``, so
+several ranks may share one card (or run on the CPU).  The readiness
+line comes once every rank has built its shard; a rank that dies takes
+the server down with a nonzero exit.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import signal
+import subprocess
 import sys
+import tempfile
 import threading
+from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import restore_npz_like
+from ..comm.mesh import init_process_group_file, serving_mesh
 from ..models import gpt as G
 from ..utils.device import default_dtype, resolve_device
 from .engine import DecodeEngine
 from .server import ServingServer
+
+ROOT = Path(__file__).resolve().parents[2]     # holds kungfu_tpu_torch/
 
 
 def main(argv=None):
@@ -72,13 +89,70 @@ def main(argv=None):
                          "lookup drafts per pass (lossless for greedy)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel ranks, one process each (0 = "
+                         "one device, no process group); shards the "
+                         "parameters and the KV pools")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
+                    help="the tp ranks' data backend: nccl (rank r on "
+                         "cuda:r) or gloo (every rank on --device)")
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-store", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.weights_int8_min_size and not args.weights_int8:
         ap.error("--weights-int8-min-size requires --weights-int8 (it "
                  "restricts which weights quantize, it does not enable "
                  "quantization)")
+    if args.tp < 0:
+        ap.error("--tp must be >= 0")
+    if not args.tp:
+        return serve(args, resolve_device(args.device), None, [])
+    if args.tp_rank is not None:
+        return follow(args)
+    device = rank_device(args, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        argv = list(sys.argv[1:] if argv is None else argv)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "kungfu_tpu_torch.serving", *argv,
+             "--tp-rank", str(r), "--tp-store", store], env=env,
+            stdout=subprocess.DEVNULL) for r in range(1, args.tp)]
+        try:
+            init_process_group_file(store, 0, args.tp, args.backend)
+            return serve(args, device, serving_mesh(args.tp), procs)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
-    device = resolve_device(args.device)
+
+def rank_device(args, rank: int) -> torch.device:
+    """Tensor-parallel rank ``rank``'s device: ``cuda:rank`` over nccl
+    (which needs ``--tp`` visible cards), ``--device`` over gloo."""
+    if args.backend == "gloo":
+        return resolve_device(args.device)
+    if torch.device(args.device).type != "cuda":
+        raise SystemExit("--backend nccl runs on cuda; use --backend gloo "
+                         "with --device cpu")
+    resolve_device("cuda")
+    if torch.cuda.device_count() < args.tp:
+        raise SystemExit(f"--tp {args.tp} over nccl but only "
+                         f"{torch.cuda.device_count()} cards visible")
+    torch.cuda.set_device(rank)
+    return resolve_device(f"cuda:{rank}")
+
+
+def build_engine(args, device, mesh) -> DecodeEngine:
+    """The engine of this process (the same arguments and seeded weights
+    on every tp rank)."""
     cfg = G.GPTConfig(vocab_size=args.vocab, d_model=args.d_model,
                       n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
                       n_layers=args.n_layers, d_ff=args.d_ff,
@@ -94,7 +168,7 @@ def main(argv=None):
               file=sys.stderr)
 
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    eng = DecodeEngine(params, cfg, num_slots=args.slots,
+    return DecodeEngine(params, cfg, num_slots=args.slots,
                        block_size=args.block, num_blocks=args.blocks,
                        prompt_buckets=buckets, decode_chunk=args.chunk,
                        max_len=args.max_len,
@@ -103,19 +177,54 @@ def main(argv=None):
                        prefix_cache=args.prefix_cache,
                        weights_int8=args.weights_int8,
                        weights_int8_min_size=args.weights_int8_min_size,
-                       device=device)
-    del params                      # the engine holds its own copy
-    srv = ServingServer(eng, host=args.host, port=args.port).start()
+                       device=device, mesh=mesh)
+
+
+def follow(args) -> int:
+    """Tensor-parallel rank ``--tp-rank``: join the group, build the
+    shard, run rank 0's programs until it stops the ranks."""
+    # rank 0 stops this rank, also when a signal reaches the whole
+    # process group; if rank 0 dies, the next command's wait fails
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, signal.SIG_IGN)
+    device = rank_device(args, args.tp_rank)
+    init_process_group_file(args.tp_store, args.tp_rank, args.tp,
+                            args.backend)
+    try:
+        build_engine(args, device, serving_mesh(args.tp)).follow()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def serve(args, device, mesh, followers) -> int:
+    """Rank 0 (or the only process): serve until SIGINT/SIGTERM, or until
+    a tp rank exits."""
+    srv = ServingServer(build_engine(args, device, mesh), host=args.host,
+                        port=args.port).start()
     # handlers before the readiness line: a supervisor reacting to it may
     # signal immediately, and that must reach the graceful shutdown
     done = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: done.set())
     print(f"SERVING ready on {srv.host}:{srv.port}", flush=True)
-    done.wait()
+    while not done.wait(0.5):
+        if any(p.poll() is not None for p in followers):
+            break
+    lost = [r for r, p in enumerate(followers, 1) if p.poll() is not None]
     print("serving: shutting down", file=sys.stderr)
     srv.close()
+    for r, p in enumerate(followers, 1):
+        try:
+            p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            lost.append(r)
+    if lost or srv.close_error:
+        print(f"serving: tensor-parallel ranks {lost} stopped early "
+              f"({srv.close_error})", file=sys.stderr)
+        return 1
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -28,17 +28,23 @@ from ..ops.flash_attention import _expand_kv_heads
 
 
 def init_paged_pools(cfg: GPTConfig, num_blocks: int, block_size: int,
-                     kv_dtype=None, device=None) -> List[dict]:
-    """Per-layer K/V pools ``[num_blocks, block_size, kv_heads, Dh]`` in
-    the model dtype; block 0 is reserved as scratch.
+                     kv_dtype=None, device=None, tp: int = 1) -> List[dict]:
+    """Per-layer K/V pools ``[num_blocks, block_size, kv_heads / tp, Dh]``
+    in the model dtype; block 0 is reserved as scratch.  A tp rank's pools
+    hold its shard of the KV heads, each its own contiguous tensor (the
+    JAX engine's ``_pool_specs``; the kernel takes no strided view).
 
     ``kv_dtype=torch.int8`` stores tokens as int8 with one f32 scale per
-    (token, kv_head): ``{"k", "ks", "v", "vs"}`` per layer."""
+    (token, kv_head): ``{"k", "ks", "v", "vs"}`` per layer, the scale
+    planes sharded as their pools."""
     if num_blocks < 2:
         raise ValueError("need >= 2 blocks (block 0 is scratch)")
     if kv_dtype is not None and kv_dtype != torch.int8:
         raise ValueError("kv_dtype must be None (model dtype) or torch.int8")
-    shape = (num_blocks, block_size, cfg.kv_heads, cfg.head_dim)
+    if cfg.kv_heads % tp:
+        raise ValueError(f"kv_heads={cfg.kv_heads} not divisible by {tp} "
+                         f"tensor-parallel ranks")
+    shape = (num_blocks, block_size, cfg.kv_heads // tp, cfg.head_dim)
     if kv_dtype == torch.int8:
         sshape = shape[:-1]
         return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),

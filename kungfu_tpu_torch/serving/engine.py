@@ -23,14 +23,19 @@
   prompt's suffix, reading the shared blocks through its block table;
 * **request journal** (``journal``, ``serving/slo.py``): each request's
   arrival, admissions, first token, preemptions and finish, with the
-  SLO evaluation that ``GET /requests`` serves.
+  SLO evaluation that ``GET /requests`` serves;
+* **tensor parallelism** (``mesh``, ``serving/tp.py``): one process per
+  tp rank, each with its Megatron shard of the parameters and a pool of
+  its KV heads; rank 0 schedules and sends every program to the other
+  ranks as a command, and the programs sum their partial products and
+  gather the logits over the tp group.
 
 The per-request oracle is ``models.gpt.generate``: greedy requests get
 exactly the tokens the plain decoder produces (under int8 weights, on
 the dequantized weights).
 
-Left for later slices of the port: tensor-parallel serving, and the
-trace events, monitor gauges, ``StepPhases`` and chaos points.
+Left for later slices of the port: the trace events, monitor gauges,
+``StepPhases`` and chaos points.
 """
 from __future__ import annotations
 
@@ -43,14 +48,21 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
+from ..comm.mesh import TP_AXIS, ProcessMesh
 from ..models import gpt as G
 from ..models.gpt import GPTConfig
-from ..ops.quant import dequantize_weights, quantize_weights
+from ..ops import paged_attention as PA
+from ..ops.quant import QuantizedTensor, dequantize_weights, quantize_weights
+from ..parallel.threed import shard_params
 from ..utils.device import resolve_device
+from ..utils.tree import tree_leaves
 from .cache import (init_paged_pools, lookup_blocks, pool_attend,
                     pool_attend_queries, pool_write_at,
                     pool_write_prompt_batch, pool_write_token)
 from .slo import RequestJournal
+from .tp import STOP, Channel, TPComm
 
 
 @dataclasses.dataclass
@@ -131,6 +143,11 @@ class EngineStats:
         self.prefix_hits = 0         # admissions served from the cache
         self.prefix_tokens_reused = 0  # prompt tokens not recomputed
         self.wall_s = 0.0
+        # under tp: each rank's counters as of the last dispatch, running
+        # totals since the rank started (reset does not reach them): K5
+        # launches, the tp collectives' seconds, peak device bytes, and
+        # resident weight bytes
+        self.ranks: List[Dict[str, float]] = []
 
     @property
     def occupancy(self):
@@ -155,6 +172,8 @@ class EngineStats:
             out["spec_accepted"] = self.spec_accepted
             out["spec_accept_rate"] = round(
                 self.spec_accepted / self.spec_proposed, 3)
+        if self.ranks:
+            out["tp_ranks"] = self.ranks
         return out
 
 
@@ -174,18 +193,27 @@ def _weights_at_use(cfg: GPTConfig, weights_int8: bool):
     return lambda tree: dequantize_weights(tree, cfg.dtype)
 
 
-def _logits(params, x, prep):
+def _logits(params, x, prep, tp=None):
     """f32 logits from ``x`` [B, 1, D]; an int8 LM head is dequantized to
-    ``cfg.dtype`` and widened, as the JAX engine's head uses it."""
-    return G._head(prep({"lm_head": params["lm_head"]}), x)
+    ``cfg.dtype`` and widened, as the JAX engine's head uses it.  Under
+    ``tp`` the rank's vocabulary block is gathered (``G.tp_head``)."""
+    local = G._head(prep({"lm_head": params["lm_head"]}), x)
+    return local if tp is None else tp.gather(local)
+
+
+def _psum(tp):
+    return None if tp is None else tp.psum
 
 
 def _decode_core(params, cfg: GPTConfig, block_size: int, pools, tables,
-                 pos, tokens, attend_mode: str = "auto", prep=_identity):
+                 pos, tokens, attend_mode: str = "auto", prep=_identity,
+                 tp=None):
     """One decode step for every slot: feed each its last token at its
     own position, write K/V through the block tables (inactive slots'
     zeroed rows route to scratch), attend straight off the pool, return
-    f32 logits [S, V]."""
+    f32 logits [S, V].  Under ``tp`` (a ``serving.tp.TPComm``) the
+    parameters and pools hold the rank's shard, and each layer's partial
+    products are summed over the tp group."""
     x = G.embed(params, tokens[:, None], pos[:, None], cfg)
     blk, off = lookup_blocks(tables, pos, block_size)
     for layer, pool in zip(params["layers"], pools):
@@ -193,9 +221,9 @@ def _decode_core(params, cfg: GPTConfig, block_size: int, pools, tables,
         q, kk, v = G._layer_qkv(layer, x, cfg, pos=pos[:, None])
         pool_write_token(pool, blk, off, kk[:, 0], v[:, 0])
         o = pool_attend(q, pool, tables, pos, mode=attend_mode)
-        x = G._layer_finish(layer, x, o, cfg)
+        x = G._decode_finish(layer, x, o, cfg, _psum(tp))
     x = G.rms_norm(x, params["lnf"])
-    return _logits(params, x, prep)
+    return _logits(params, x, prep, tp)
 
 
 def _filter_logits(lg, k: int, p: float):
@@ -249,13 +277,14 @@ def _pick_tokens(logits, uid_lo, uid_hi, tcount, temp, top_k, top_p):
 
 
 def _make_decode_chunk(cfg: GPTConfig, block_size: int, chunk: int,
-                       attend_mode: str = "auto", prep=_identity):
+                       attend_mode: str = "auto", prep=_identity, tp=None):
     """``chunk`` decode steps back to back, each feeding its sampled
     tokens to the next on the device; returns all sampled tokens
     [chunk, S] on the device, so the caller syncs once per chunk (the
     reason the JAX engine runs the chunk as one lax.scan program).  A
     finished sequence's trailing in-chunk steps sample discarded tokens,
-    written to the slot's own blocks or scratch."""
+    written to the slot's own blocks or scratch.  Under ``tp`` every rank
+    samples from the same gathered logits, so the tokens agree."""
 
     @torch.no_grad()
     def run(params, pools, tables, pos, tokens, uid_lo, uid_hi, tcount,
@@ -264,7 +293,7 @@ def _make_decode_chunk(cfg: GPTConfig, block_size: int, chunk: int,
         tok = tokens
         for i in range(chunk):
             logits = _decode_core(params, cfg, block_size, pools, tables,
-                                  pos + i, tok, attend_mode, prep)
+                                  pos + i, tok, attend_mode, prep, tp)
             tok = _pick_tokens(logits, uid_lo, uid_hi, tcount + i, temp,
                                top_k, top_p)
             toks.append(tok)
@@ -274,7 +303,7 @@ def _make_decode_chunk(cfg: GPTConfig, block_size: int, chunk: int,
 
 
 def _make_verify(cfg: GPTConfig, block_size: int, K: int,
-                 attend_mode: str = "auto", prep=_identity):
+                 attend_mode: str = "auto", prep=_identity, tp=None):
     """Speculative-decoding verify: feed every slot its current token plus
     ``K`` drafted continuations (Q = K+1 positions) in one forward and
     return the model's prediction at each position [S, Q].  Greedy
@@ -295,11 +324,11 @@ def _make_verify(cfg: GPTConfig, block_size: int, K: int,
             pool_write_at(pool, tables, qpos, kk, v, block_size)
             o = pool_attend_queries(q, pool, tables, qpos,
                                     mode=attend_mode)        # [S, Q, H, Dh]
-            x = G._layer_finish(layer, x, o, cfg)
+            x = G._decode_finish(layer, x, o, cfg, _psum(tp))
         x = G.rms_norm(x, params["lnf"])
         S = x.shape[0]
         logits = _logits(params, x.reshape(S * Q, 1, x.shape[-1]),
-                         prep).reshape(S, Q, -1)             # [S, Q, V]
+                         prep, tp).reshape(S, Q, -1)         # [S, Q, V]
         preds = torch.argmax(logits, dim=-1).to(torch.int32)
         # position 0 honours the per-request sampling discipline (sampled
         # slots draft nothing, so only their column 0 is consumed)
@@ -325,20 +354,22 @@ def _propose_draft(history, K: int, ngram: int = 2):
     return []
 
 
-def _last_logits(params, x, t_real, prep):
+def _last_logits(params, x, t_real, prep, tp=None):
     """f32 logits [n, V] from each prefill row's hidden state at its true
     last position ``t_real - 1``."""
     x = G.rms_norm(x, params["lnf"])
     last = torch.clamp(t_real.long() - 1, min=0)
     h_last = x[torch.arange(x.shape[0], device=x.device), last]
-    return _logits(params, h_last[:, None], prep)
+    return _logits(params, h_last[:, None], prep, tp)
 
 
 def _prefill_features(params, cfg: GPTConfig, block_size: int, pools,
-                      table_rows, tokens, t_real, prep=_identity):
+                      table_rows, tokens, t_real, prep=_identity, tp=None):
     """The full-prompt prefill's layers: causal forward over the
     right-padded prompts [n, T], K/V written into each row's blocks
-    (padding to scratch); returns the last layer's output [n, T, D]."""
+    (padding to scratch); returns the last layer's output [n, T, D].
+    Under ``tp`` the rank's heads attend (the GQA group ratio is the
+    same on every rank) and the partial products are summed."""
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     x = G.embed(params, tokens, pos, cfg)                    # [n, T, D]
     for layer, pool in zip(params["layers"], pools):
@@ -346,13 +377,13 @@ def _prefill_features(params, cfg: GPTConfig, block_size: int, pools,
         q, kk, v = G._layer_qkv(layer, x, cfg, pos=pos)
         pool_write_prompt_batch(pool, table_rows, kk, v, t_real, block_size)
         o = G._attend(q, kk, v, "dense", kv_groups=cfg.kv_groups)
-        x = G._layer_finish(layer, x, o, cfg)
+        x = G._decode_finish(layer, x, o, cfg, _psum(tp))
     return x
 
 
 def _prefill_cached_features(params, cfg: GPTConfig, block_size: int, pools,
                              table_rows, tokens, t_real, t_cached,
-                             prep=_identity):
+                             prep=_identity, tp=None):
     """The suffix prefill's layers: each row's prompt suffix (positions
     ``t_cached .. t_cached + t_real - 1``) runs the dense forward, its
     K/V are written to the row's own blocks at those absolute positions,
@@ -375,28 +406,29 @@ def _prefill_cached_features(params, cfg: GPTConfig, block_size: int, pools,
         q, kk, v = G._layer_qkv(layer, x, cfg, pos=qpos)
         pool_write_at(pool, table_rows, wpos, kk, v, block_size)
         o = pool_attend_queries(q, pool, table_rows, qpos, mode="gather")
-        x = G._layer_finish(layer, x, o, cfg)
+        x = G._decode_finish(layer, x, o, cfg, _psum(tp))
     return x
 
 
-def _make_prefill(cfg: GPTConfig, block_size: int, prep=_identity):
+def _make_prefill(cfg: GPTConfig, block_size: int, prep=_identity, tp=None):
     """Bucketed dense prefill for a group of requests: the layers of
     :func:`_prefill_features`, then each row's first token (index 0 of
     its stream) from its true last position."""
 
     @torch.no_grad()
-    def prefill(params, pools, table_rows, tokens, t_real, uid_lo, uid_hi,
-                temp, top_k, top_p):
-        x = _prefill_features(params, cfg, block_size, pools, table_rows,
-                              tokens, t_real, prep)
-        return _pick_tokens(_last_logits(params, x, t_real, prep), uid_lo,
-                            uid_hi, np.zeros(len(uid_lo), np.int64), temp,
-                            top_k, top_p)
+    def prefill(params, pools, rows, tokens, t_real, uid_lo, uid_hi, temp,
+                top_k, top_p):
+        x = _prefill_features(params, cfg, block_size, pools, rows, tokens,
+                              t_real, prep, tp)
+        return _pick_tokens(_last_logits(params, x, t_real, prep, tp),
+                            uid_lo, uid_hi, np.zeros(len(uid_lo), np.int64),
+                            temp, top_k, top_p)
 
     return prefill
 
 
-def _make_prefill_cached(cfg: GPTConfig, block_size: int, prep=_identity):
+def _make_prefill_cached(cfg: GPTConfig, block_size: int, prep=_identity,
+                         tp=None):
     """Suffix prefill for prefix-cache hits: the layers of
     :func:`_prefill_cached_features` (the prefix's projections, FFN and
     attention are skipped), then each row's first token.  Model-dtype
@@ -404,16 +436,31 @@ def _make_prefill_cached(cfg: GPTConfig, block_size: int, prep=_identity):
     would."""
 
     @torch.no_grad()
-    def prefill(params, pools, table_rows, tokens, t_real, t_cached, uid_lo,
+    def prefill(params, pools, rows, tokens, t_real, t_cached, uid_lo,
                 uid_hi, temp, top_k, top_p):
-        x = _prefill_cached_features(params, cfg, block_size, pools,
-                                     table_rows, tokens, t_real, t_cached,
-                                     prep)
-        return _pick_tokens(_last_logits(params, x, t_real, prep), uid_lo,
-                            uid_hi, np.zeros(len(uid_lo), np.int64), temp,
-                            top_k, top_p)
+        x = _prefill_cached_features(params, cfg, block_size, pools, rows,
+                                     tokens, t_real, t_cached, prep, tp)
+        return _pick_tokens(_last_logits(params, x, t_real, prep, tp),
+                            uid_lo, uid_hi, np.zeros(len(uid_lo), np.int64),
+                            temp, top_k, top_p)
 
     return prefill
+
+
+# the programs' arguments that go to the device (the rest are host arrays)
+_DEVICE_ARGS = ("tables", "pos", "tokens", "draft", "rows", "t_real",
+                "t_cached")
+# each tp rank's counters, in the order its token check carries them
+_RANK_COUNTERS = ("k5_launches", "collective_s", "peak_bytes",
+                  "weight_bytes")
+
+
+def resident_bytes(tree) -> int:
+    """Resident bytes of a parameter tree (an int8 weight counts its q and
+    its scale)."""
+    return sum(t.numel() * t.element_size() for leaf in tree_leaves(tree)
+               for t in ((leaf.q, leaf.scale)
+                         if isinstance(leaf, QuantizedTensor) else (leaf,)))
 
 
 class DecodeEngine:
@@ -448,6 +495,17 @@ class DecodeEngine:
     model-dtype pools only.  ``journal`` (a ``serving.slo.RequestJournal``
     with the default SLOs and no sink; replace it before the first
     submit to change either) records every request's lifecycle.
+
+    ``mesh`` (``comm.mesh.serving_mesh(n)``) switches on tensor-parallel
+    serving: every rank of the mesh constructs the engine with the same
+    arguments and the same full ``params`` tree (quantized first under
+    ``weights_int8``, then sharded: ``parallel.threed.shard_params``),
+    and holds its Megatron shard and pools of ``kv_heads / n`` KV heads.
+    Rank 0 is the driver: ``submit``, ``step``, ``run`` and a
+    ``ServingServer`` work as without tp, and each program is sent to the
+    other ranks first (``serving/tp.py``); the others call :meth:`follow`
+    until rank 0's :meth:`close`.  The constructor returns once every
+    rank has built its shard.
     """
 
     def __init__(self, params, cfg: GPTConfig, *, num_slots: int = 8,
@@ -457,7 +515,8 @@ class DecodeEngine:
                  prefill_group: Optional[int] = None, on_tokens=None,
                  attend: str = "auto", kv_dtype=None, speculative: int = 0,
                  prefix_cache: bool = False, weights_int8: bool = False,
-                 weights_int8_min_size: int = 0, device=None):
+                 weights_int8_min_size: int = 0, device=None,
+                 mesh: Optional[ProcessMesh] = None):
         if attend not in ("auto", "fused", "gather"):
             raise ValueError(f"attend must be auto|fused|gather, "
                              f"got {attend!r}")
@@ -470,12 +529,28 @@ class DecodeEngine:
                 "cache would substitute dequantized prefix values where "
                 "an uncached prefill attends fresh ones")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rank, ntp = 0, 1
+        self.tp = self._channel = None
+        if mesh is not None:
+            if mesh.control is None:
+                raise ValueError("the serving mesh needs its control group "
+                                 "(comm.mesh.serving_mesh)")
+            ntp = mesh.size(TP_AXIS)
+            G.validate_tp(cfg, ntp)
+            self.rank = mesh.index(TP_AXIS)
+            self.tp = TPComm(mesh.group(TP_AXIS), self.device)
+            self._channel = Channel(mesh.control)
+        self._closed = False
         self.weights_int8 = bool(weights_int8)
         if self.weights_int8:
             # quantize the caller's tree as it is: cast_params would
             # round the matmul weights to cfg.dtype first, and that
             # quantizes to other q and scale values than the JAX engine's
             params = quantize_weights(params, min_size=weights_int8_min_size)
+        if mesh is not None:
+            # after quantizing: the scales reduce over the full weights
+            params = shard_params(params, cfg, mesh)
         prep = _weights_at_use(cfg, self.weights_int8)
         self.params = G.cast_params(params, cfg, self.device)
         self.cfg = cfg
@@ -490,7 +565,8 @@ class DecodeEngine:
         if not self.buckets:
             raise ValueError("no prompt bucket fits max_len")
         self.pools = init_paged_pools(cfg, num_blocks, block_size,
-                                      kv_dtype=kv_dtype, device=self.device)
+                                      kv_dtype=kv_dtype, device=self.device,
+                                      tp=ntp)
         self._total_blocks = num_blocks - 1      # block 0 is scratch
         self._free = collections.deque(range(1, num_blocks))
         # ---- prefix cache: refcounted shared prompt blocks ----
@@ -537,21 +613,84 @@ class DecodeEngine:
         self.K = max(1, decode_chunk)
         self.G = max(1, min(prefill_group or min(num_slots, 8), num_slots))
         self.spec = max(0, int(speculative))
+        tp = self.tp
+        self._programs = {"prefill": _make_prefill(cfg, block_size, prep,
+                                                   tp)}
         if self.spec:
-            self._verify = _make_verify(cfg, block_size, self.spec, attend,
-                                        prep)
+            self._programs["verify"] = _make_verify(
+                cfg, block_size, self.spec, attend, prep, tp)
         else:
-            self._decode = _make_decode_chunk(cfg, block_size, self.K,
-                                              attend, prep)
-        self._prefill = _make_prefill(cfg, block_size, prep)
+            self._programs["decode"] = _make_decode_chunk(
+                cfg, block_size, self.K, attend, prep, tp)
         if self.prefix_cache:
-            self._prefill_cached = _make_prefill_cached(cfg, block_size,
-                                                        prep)
+            self._programs["prefill_cached"] = _make_prefill_cached(
+                cfg, block_size, prep, tp)
         self.stats = EngineStats(num_slots)
         self.journal = RequestJournal()
+        if mesh is not None:
+            self._weight_bytes = resident_bytes(self.params)
+            self._exchange(np.zeros(0, np.int32))   # every rank is built
 
     def _dev(self, a: np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # ------------------------------------------------------ programs, tp
+    def _dispatch(self, op: str, **arrays) -> np.ndarray:
+        """Run program ``op`` on host ``arrays``; under tp, send it to the
+        other ranks first.  Returns its tokens on the host."""
+        if self._channel is not None:
+            self._channel.send(op, arrays)
+        return self._run(op, arrays)
+
+    def _run(self, op: str, arrays) -> np.ndarray:
+        args = {k: self._dev(v) if k in _DEVICE_ARGS else v
+                for k, v in arrays.items()}
+        toks = self._programs[op](self.params, self.pools,
+                                  **args).cpu().numpy()
+        if self.tp is not None:
+            self._exchange(toks)
+        return toks
+
+    def _exchange(self, toks: np.ndarray) -> None:
+        """Under tp, after each program: one all-gather over the control
+        group of every rank's tokens and counters.  Raises unless every
+        rank's tokens equal rank 0's (on every rank, so all stop); keeps
+        the counters in ``stats.ranks``."""
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else 0)
+        mine = torch.from_numpy(np.concatenate([
+            toks.reshape(-1).astype(np.float64),
+            np.asarray([PA.launches, self.tp.settle(), peak,
+                        self._weight_bytes], np.float64)]))
+        parts = [torch.empty_like(mine) for _ in range(self.tp.size)]
+        dist.all_gather(parts, mine, group=self.mesh.control)
+        n = toks.size
+        for r, part in enumerate(parts):
+            if not torch.equal(part[:n], parts[0][:n]):
+                raise RuntimeError(
+                    f"tensor-parallel rank {r} picked other tokens than "
+                    f"rank 0: {part[:n].long().tolist()} != "
+                    f"{parts[0][:n].long().tolist()}")
+        self.stats.ranks = [dict(zip(_RANK_COUNTERS, part[n:].tolist()))
+                            for part in parts]
+
+    def follow(self) -> None:
+        """A follower's loop (tp ranks other than 0): run every program
+        rank 0 sends, on this rank's shard, until rank 0 sends stop."""
+        if self._channel is None or self.rank == 0:
+            raise RuntimeError("follow() is for tp ranks other than 0")
+        while True:
+            op, arrays = self._channel.recv()
+            if op == STOP:
+                return
+            self._run(op, arrays)
+
+    def close(self) -> None:
+        """Rank 0 under tp: send the other ranks the stop command (once).
+        Nothing to do without tp."""
+        if self._channel is not None and self.rank == 0 and not self._closed:
+            self._closed = True
+            self._channel.send(STOP, {})
 
     # ------------------------------------------------------------- admin
     def validate_shape(self, req: Request) -> None:
@@ -800,24 +939,21 @@ class DecodeEngine:
                 temps[g] = req.temperature
                 topks[g] = req.top_k
                 topps[g] = req.top_p
+            sampling = dict(uid_lo=uid_lo, uid_hi=uid_hi, temp=temps,
+                            top_k=topks, top_p=topps)
             if t_cacheds.any():
                 # at least one cached prefix: the suffix program (reads
                 # the shared blocks through the tables)
-                tok0s = self._prefill_cached(
-                    self.params, self.pools, self._dev(rows),
-                    self._dev(toks), self._dev(t_reals),
-                    self._dev(t_cacheds), uid_lo, uid_hi, temps, topks,
-                    topps)
+                tok0s = self._dispatch("prefill_cached", rows=rows,
+                                       tokens=toks, t_real=t_reals,
+                                       t_cached=t_cacheds, **sampling)
                 self.stats.prefix_hits += int((t_cacheds > 0).sum())
                 self.stats.prefix_tokens_reused += int(t_cacheds.sum())
             else:
                 # all-fresh batch: the original full-prompt program (the
                 # same numbers as the cache-off engine)
-                tok0s = self._prefill(
-                    self.params, self.pools, self._dev(rows),
-                    self._dev(toks), self._dev(t_reals), uid_lo, uid_hi,
-                    temps, topks, topps)
-            tok0s = tok0s.cpu().numpy()
+                tok0s = self._dispatch("prefill", rows=rows, tokens=toks,
+                                       t_real=t_reals, **sampling)
             self.stats.prefills += 1
             now = time.perf_counter()
             for req, slot, _, t_cached in batch:
@@ -943,6 +1079,11 @@ class DecodeEngine:
                         "— increase num_blocks")
 
     # -------------------------------------------------------------- run
+    def _slot_sampling(self) -> dict:
+        return dict(uid_lo=self._uid_lo, uid_hi=self._uid_hi,
+                    tcount=self._tcount, temp=self._temp, top_k=self._topk,
+                    top_p=self._topp)
+
     def _step_speculative(self) -> bool:
         """Speculative tick: draft via prompt-lookup, one verify pass
         checks every slot's current token + drafts, accept the matching
@@ -972,11 +1113,9 @@ class DecodeEngine:
             draft[slot, 0] = self._tok[slot]
             draft[slot, 1:1 + len(d)] = d
             dlen[slot] = len(d)
-        preds = self._verify(
-            self.params, self.pools, self._dev(self._tables),
-            self._dev(self._pos), self._dev(draft), self._uid_lo,
-            self._uid_hi, self._tcount, self._temp, self._topk, self._topp)
-        preds = preds.cpu().numpy()                  # [S, Q]: one sync
+        preds = self._dispatch("verify", tables=self._tables, pos=self._pos,
+                               draft=draft, **self._slot_sampling())
+        # preds [S, Q]: one sync
         self.stats.decode_steps += Q
         self.stats.dispatches += 1
         for slot in active:
@@ -1013,11 +1152,9 @@ class DecodeEngine:
         active = [s for s in range(self.S) if self._running[s] is not None]
         if not active:
             return bool(self._queue)
-        toks = self._decode(
-            self.params, self.pools, self._dev(self._tables),
-            self._dev(self._pos), self._dev(self._tok), self._uid_lo,
-            self._uid_hi, self._tcount, self._temp, self._topk, self._topp)
-        toks = toks.cpu().numpy()                    # [K, S]: one sync
+        toks = self._dispatch("decode", tables=self._tables, pos=self._pos,
+                              tokens=self._tok, **self._slot_sampling())
+        # toks [K, S]: one sync
         self.stats.decode_steps += self.K
         self.stats.dispatches += 1
         for slot in active:

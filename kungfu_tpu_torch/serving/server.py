@@ -17,8 +17,10 @@ the same decode batch, and callers block only on their own completion.
 
 The engine is single-threaded by construction (device state, block
 tables); handlers hand it work through a submission list and per-uid
-events.  /stats reads the pure-Python stat counters directly (a snapshot
-that may be torn across fields).  A scheduler death or close() releases
+events.  Under tensor parallelism the server runs on rank 0 only, over
+the driver's engine; ``close()`` stops the other ranks.  /stats reads
+the pure-Python stat counters directly (a snapshot that may be torn
+across fields).  A scheduler death or close() releases
 every waiting client with a 503 instead of a wedge.
 """
 from __future__ import annotations
@@ -58,6 +60,7 @@ class ServingServer:
         self._chained_on_tokens = engine.on_tokens
         engine.on_tokens = self._on_tokens
         self._fatal: Optional[str] = None
+        self.close_error: Optional[str] = None
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._sched: Optional[threading.Thread] = None
@@ -264,11 +267,19 @@ class ServingServer:
         return self
 
     def close(self) -> None:
+        """Stop the scheduler and the listener, then the engine's other tp
+        ranks (unless the scheduler is still inside a program, or their
+        group has already failed: its error is kept in ``close_error``)."""
         self._stop.set()
         self._wake.set()
         if self._sched:
             self._sched.join(timeout=30)   # releases waiters on exit
         self._http.stop()
+        if self._sched is None or not self._sched.is_alive():
+            try:
+                self.engine.close()
+            except RuntimeError as e:      # a tp peer already gone
+                self.close_error = f"{type(e).__name__}: {e}"
         # requests still in flight never finish: close their journal
         # records as evicted, so the ring ends with no dangling lifecycle
         self.engine.journal.evict_open("server-closed")

@@ -54,3 +54,13 @@ def test_f32_prefix_cache_matches_cache_off(cuda_device):
     out = chip_smoke.phase_prefix_f32(cuda_device)
     assert out["tokens_equal"]
     assert out["cases"]["preemption"]["preemptions"] >= 1
+
+
+def test_tp2_engine_over_gloo_matches_tp1(cuda_device):
+    """chip_smoke's ``tp2_f32_2l``: the tp-2 engine over gloo on the card
+    (2 ranks, full width, 2 layers, f32) gives tp 1's tokens, stats and
+    K5 launches with int8 weights + int8 KV + speculative 3 and in the
+    prefix cache's three cases; ``make_tp_generate`` gives
+    ``G.generate``'s tokens."""
+    out = chip_smoke.phase_tp2_f32(cuda_device)
+    assert out["tokens_equal"] and out["generate_equal"]
