@@ -5,6 +5,7 @@
     python3 chip_smoke.py --commit-cost
     python3 chip_smoke.py --parallel
     python3 chip_smoke.py --serving-tp
+    python3 chip_smoke.py --fsdp
 
 With no arguments:
 
@@ -149,7 +150,29 @@ With no arguments:
    without the sp offset; in B: the all-to-all joining its blocks in
    reverse rank order); step seconds, the collectives' share (each
    collective timed between two synchronizes) and bytes by kind, every
-   rank's peak memory (``parallel_gpt_470m``).
+   rank's peak memory (``parallel_gpt_470m``);
+15. trains the 470m GPT at full width and depth under
+   ``parallel.fsdp`` in 2 gloo ranks sharing the card, one sequence of
+   4096 tokens a rank, one SGD step and two AdamW steps, f32 master
+   shards computed in bf16: job A layerwise ZeRO-3
+   (``make_fsdp_scan_step``, a layer gathered at a time, remat, K1-K4 on
+   every layer), B ZeRO-1 (``make_zero1_step``), C flat ZeRO-3
+   (``make_fsdp_step``, its SGD step only); each against one process on
+   the same weights, rows and optimizers: every step's loss and the SGD
+   step's gradient per tensor within their limits, A's K1-K4 launches
+   exactly as remat issues them, A's gathered parameter bytes alive at
+   once at most one layer plus the embedding and head, A's peak below
+   C's by the full parameters less one layer, B's replicas bit for bit
+   on JAX's rule (the chunk plus its updates) and alike on both ranks;
+   a rank's device memory after ``init`` (the caller's tree gone) its
+   state and less than half a layer more; A's sharded checkpoint after
+   step 2 restored by rank 0 alone into the n = 1 layout, bit for bit,
+   then step 3: AdamW's step count restored, and the loss at the
+   parameters step 3 leaves within the loss limit of A's; planted faults
+   caught (a reduce-scatter without the mean, rank 1's gather in reverse
+   rank order, ZeRO-1 gathering the new parameters in place of the
+   updates); the step seconds, the collectives' seconds, share and bytes
+   by kind, and every job's peak memory (``fsdp_gpt_470m``).
 
 Each phase prints a JSON line.  The last two lines are the kernels record
 and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; so
@@ -157,6 +180,9 @@ does a machine without a CUDA device.  Imports nothing of JAX.
 
 ``--parallel`` builds the kernels, prints the card, checks FLASH_CASES y
 and z and runs only ``parallel_gpt_470m``.
+
+``--fsdp`` builds the kernels, prints the card, checks FLASH_CASES y and
+z and runs only ``fsdp_gpt_470m``.
 
 ``--serving-tp`` builds the kernels, prints the card, and runs only K5 at
 the tp-2 shapes, ``serve_470m`` (tp 2's reference), ``serve_470m_tp2``
@@ -667,7 +693,7 @@ def phase_serve_int8w(params, cfg, device, bf16_bytes: int) -> dict:
                                          for i in range(len(served))))
 
 
-def phase_profile(params, cfg, device, chunks=4, **kw) -> dict:
+def phase_profile(params, cfg, device, chunks=2, **kw) -> dict:
     """Where a decode chunk's time goes: the 470m engine (``kw`` on top of
     ``ENGINE``) with all 8 slots decoding (prompts of 256), ``chunks``
     steady-state chunks under torch.profiler.  Device busy share = summed
@@ -711,8 +737,7 @@ def phase_profile(params, cfg, device, chunks=4, **kw) -> dict:
             "k5_ms_per_chunk": k5_us / 1e3 / chunks,
             "k5_kernels_per_chunk": k5_kernels / chunks,
             "k5_calls_per_chunk": calls / chunks,
-            "launches_per_chunk": sum(ev.count for ev in prof.key_averages()
-                                      if ev.device_type == DeviceType.CUDA)
+            "launches_per_chunk": sum(ev.count for ev in device_rows)
             / chunks,
             "top_kernels_ms_per_chunk": [[k[:80], v / 1e3 / chunks]
                                          for k, v in top]}
@@ -3788,27 +3813,34 @@ def _par_worst(errs: dict, k: int = 3) -> list:
 class _CollectiveClock:
     """Wraps the port's collectives (``comm.collectives``: ``_reduce``
     under every all-reduce, ``ring_exchange`` under ``ppermute``,
-    ``_all_to_all``) to add up, per kind and group, the seconds between a
-    synchronize before the call and one after it, the bytes a rank sends
-    (its buffer) and the calls."""
+    ``_all_to_all``; or the ``names`` given, such as ZeRO's
+    ``_gather_tiled`` and ``_reduce_scatter_tiled``) to add up, per kind
+    and group, the seconds between a synchronize before the call and one
+    after it, the bytes a rank sends (its buffer) and the calls.  Without
+    a mesh every group reads "fsdp"."""
 
-    def __init__(self, mesh):
+    KINDS = {"_reduce": "all_reduce", "ring_exchange": "ppermute",
+             "_all_to_all": "all_to_all", "_gather_tiled": "all_gather",
+             "_reduce_scatter_tiled": "reduce_scatter"}
+
+    def __init__(self, mesh, names=("_reduce", "ring_exchange",
+                                    "_all_to_all")):
         from kungfu_tpu_torch.comm import collectives as C
         self.C, self.mesh, self.stats = C, mesh, {}
-        self.saved = {n: getattr(C, n) for n in ("_reduce", "ring_exchange",
-                                                 "_all_to_all")}
+        self.saved = {n: getattr(C, n) for n in names}
         for name, fn in self.saved.items():
             setattr(C, name, self._wrap(name, fn))
 
     def _axes(self, group) -> str:
+        if self.mesh is None:
+            return "fsdp"
         for axes in (("tp",), ("sp",), ("dp",), ("dp", "sp")):
             if group is self.mesh.group(*axes):
                 return ",".join(axes)
         return "other"
 
     def _wrap(self, name, fn):
-        kind = {"_reduce": "all_reduce", "ring_exchange": "ppermute",
-                "_all_to_all": "all_to_all"}[name]
+        kind = self.KINDS[name]
 
         def run(x, group, *args, **kw):
             torch.cuda.synchronize()
@@ -4028,6 +4060,524 @@ def phase_parallel_gpt_470m(device, smi: str) -> dict:
     return out
 
 
+# ------------------------------------ phase 15: sharded data parallelism
+# job -> (step builder, layers, optimizer steps).  A: the slice's path,
+# layerwise ZeRO-3 (remat) at full width and depth; B: ZeRO-1; C: flat
+# ZeRO-3, whose monolithic gather's peak stands beside A's (its SGD step)
+FSDP_JOBS = {"A": ("scan", 24, PAR_STEPS), "B": ("zero1", 24, PAR_STEPS),
+             "C": ("flat", 24, PAR_STEPS[:1])}
+FSDP_RANKS = 2
+FSDP_SAVE_AT = 2                 # A saves its state after this step
+FSDP_CE_CHUNK = 8192             # vocabulary chunk of the head's CE
+# the SGD step's gradient, per tensor: ||rank's - one process's|| /
+# ||one process's||, gathered and unravelled.  bf16 compute: each rank
+# rounds its row's products, the one process both rows'; a bf16 CPU
+# rehearsal of the phase at d_model 256 (4 heads, 1 KV head, d_ff 512, T
+# 256, 24 layers) read 0.0168 in A, B and C (layers/0/wq the worst), its
+# planted faults 1.005 and 1.022.  Set before the first run on the card
+FSDP_GRAD_TOL = 0.08
+# job -> the faults planted in its ranks: A's read by the SGD step's
+# gradient error against FSDP_GRAD_TOL, B's by the replicas' bit check
+FSDP_FAULTS = {"A": ("no_mean", "reversed"), "B": ("new_params",)}
+FSDP_CLOCKED = ("_gather_tiled", "_reduce_scatter_tiled", "_reduce")
+FSDP_BUDGET_S = 200.0
+
+
+def fsdp_gpt_fns(cfg):
+    """The GPT under ``make_fsdp_scan_step``'s contract: the embedding,
+    one layer on the flash kernels (K1-K4), and the final norm with the
+    chunked cross-entropy (the token mean)."""
+    from kungfu_tpu_torch.ops.chunked_ce import chunked_cross_entropy
+
+    def embed_fn(ep, batch):
+        tokens = batch[0]
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        return G.embed(ep, tokens, pos[None], cfg)
+
+    def layer_fn(lp, x):
+        return G.apply_layer(lp, x, cfg, attn="flash")
+
+    def head_loss_fn(hp, x, batch):
+        return chunked_cross_entropy(G.rms_norm(x, hp["lnf"]), hp["lm_head"],
+                                     batch[1], FSDP_CE_CHUNK).mean()
+    return embed_fn, layer_fn, head_loss_fn
+
+
+def fsdp_gpt_loss(cfg):
+    """The same model as one ``loss_fn(params, batch)`` over the GPT's
+    tree (B and C), each layer recomputed in the backward as in A."""
+    embed_fn, layer_fn, head_loss_fn = fsdp_gpt_fns(cfg)
+
+    def loss_fn(p, batch):
+        x = embed_fn({"wte": p["wte"]}, batch)
+        for layer in p["layers"]:
+            x = torch.utils.checkpoint.checkpoint(layer_fn, layer, x,
+                                                  use_reentrant=False)
+        return head_loss_fn({"lnf": p["lnf"], "lm_head": p["lm_head"]}, x,
+                            batch)
+    return loss_fn
+
+
+def fsdp_split(params):
+    """The GPT's tree as the scan contract's pieces, layers stacked."""
+    layers = {k: torch.stack([lay[k] for lay in params["layers"]])
+              for k in params["layers"][0]}
+    return {"embed": {"wte": params["wte"]}, "layers": layers,
+            "head": {"lnf": params["lnf"], "lm_head": params["lm_head"]}}
+
+
+def _fsdp_adamw(leaves):
+    return torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)        # par_train's
+
+
+def _fsdp_full(v, gather):
+    """A [n * c] or [L, n * c] vector from this rank's [c] or [L, c]."""
+    if v.dim() == 2:
+        return gather(v.t().contiguous(), None).t()
+    return gather(v.contiguous(), None)
+
+
+def _fsdp_grad_errors(kind, grads, meta, ref) -> dict:
+    """key -> ||g - ref|| / ||ref||, the SGD step's gradient against the
+    one process's (``ref``, "layers/3/wq", ...), tensor by tensor: each
+    rank sums over the part of every tensor in its chunks (``grads``: the
+    step's gradient chunks by name), and one all-reduce adds the sums."""
+    if kind == "scan":
+        P = meta.pieces
+        rows = [(grads["embed"], P["embed"], ""), (grads["head"], P["head"],
+                                                   "")]
+        rows += [(g, P["layers"], f"layers/{i}/")
+                 for i, g in enumerate(grads["layers"])]
+    else:
+        rows = [(grads["flat"], meta.flat if kind == "zero1" else meta, "")]
+    keys, sums = [], []
+    for g, m, prefix in rows:
+        lo, hi = m.r * m.local, (m.r + 1) * m.local
+        off = 0
+        for key, t in _named_leaves(m.unravel(torch.empty(
+                m.n * m.local, device="meta")), prefix):
+            a, b = max(off, lo), min(off + t.numel(), hi)
+            off += t.numel()
+            if a >= b:
+                sums.append(torch.zeros(2, dtype=torch.float64))
+            else:
+                want = ref[key].reshape(-1)[a - (off - t.numel()):
+                                            b - (off - t.numel())]
+                want = want.to(g.device, torch.float32)
+                got = g[a - lo:b - lo].float()
+                sums.append(torch.stack([((got - want) ** 2).sum(),
+                                         (want ** 2).sum()]).double().cpu())
+            keys.append(key)
+    total = torch.stack(sums)
+    dist.all_reduce(total)
+    return {k: math.sqrt(d) / max(math.sqrt(w), 1e-30)
+            for k, (d, w) in zip(keys, total.tolist())}
+
+
+def fsdp_plant(fault: str):
+    """Plant ``fault`` by monkeypatching the port; returns the undo."""
+    from kungfu_tpu_torch.comm import collectives as C
+    from kungfu_tpu_torch.parallel import fsdp as FS
+    saved = (FS._mean, C._gather_tiled, FS._zero1_apply)
+    if fault == "no_mean":               # the gradients summed, not meaned
+        FS._mean = lambda grads, n: list(grads)
+    elif fault == "reversed":            # rank 1 joins the blocks reversed
+        orig = C._gather_tiled
+
+        def gather(t, group):
+            out = orig(t, group)
+            if dist.get_rank(group) != 1:
+                return out
+            return torch.cat(out.chunk(dist.get_world_size(group))[::-1])
+        C._gather_tiled = gather
+    elif fault == "new_params":          # ZeRO-1 gathers the new chunks
+        def apply(flat, shard, before, group):
+            flat.copy_(C._gather_tiled(shard.detach(), group))
+        FS._zero1_apply = apply
+    else:
+        raise ValueError(fault)
+
+    def undo():
+        FS._mean, C._gather_tiled, FS._zero1_apply = saved
+    return undo
+
+
+def fsdp_eval_loss(state, meta, fns, batch) -> float:
+    """The loss at the scan step's parameters ``state`` (forward only, no
+    update), meaned over the group as a step's is: each layer gathered in
+    turn, as the step gathers it."""
+    from kungfu_tpu_torch.parallel import fsdp as FS
+    embed_fn, layer_fn, head_loss_fn = fns
+    P = meta.pieces
+    group = P["layers"].group
+
+    def full(name, shard):
+        return P[name].unravel(FS.fsdp_all_gather_params(shard, group))
+    with torch.no_grad():
+        batch = FS._local_rows(batch, group)
+        x = embed_fn(full("embed", state["embed"]), batch)
+        for layer_shard in state["layers"].unbind(0):
+            x = layer_fn(full("layers", layer_shard), x)
+        loss = head_loss_fn(full("head", state["head"]), x, batch)
+        return float(FS._mean_loss(loss, group))
+
+
+def fsdp_job(name, device, ref, tmp, rank, fault=None) -> dict:
+    """Job ``name`` of FSDP_JOBS on this rank, from the seeded weights, on
+    ``par_batch``: its losses, step seconds, peak GB a step, the SGD
+    step's gradient error against the one process's (``ref``), and, on
+    the counted run (no ``fault``), K1-K4 launches, the collectives by
+    kind and the gathered bytes alive at once; B also bit-checks each
+    step's replica against JAX's rule (its chunk equal to the chunk
+    before plus the updates) and the replicas across ranks.  A saves its
+    state after step FSDP_SAVE_AT (``tmp``/ck) and rank 0 keeps the
+    gathered parameters and moments on the host (``snapshot``)."""
+    from kungfu_tpu_torch.checkpoint import Checkpointer
+    from kungfu_tpu_torch.parallel import fsdp as FS
+    from kungfu_tpu_torch.parallel import threed as T3
+    kind, layers, steps = FSDP_JOBS[name]
+    if fault is not None:
+        steps = steps[:1]
+    cfg = par_config(layers)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = T3.init_gpt(cfg, None, seed=0, device=device)
+    sgd_of = lambda ps: torch.optim.SGD(ps, lr=PAR_SGD_LR)
+    if kind == "scan":
+        init, make = FS.make_fsdp_scan_step(*fsdp_gpt_fns(cfg), sgd_of)
+        params = fsdp_split(params)
+    else:
+        init, make = (FS.make_fsdp_step if kind == "flat"
+                      else FS.make_zero1_step)(fsdp_gpt_loss(cfg), sgd_of)
+    state, sgd, meta = init(params)
+    del params
+    torch.cuda.empty_cache()
+    names = sorted(state) if kind == "scan" else ["flat"]
+    leaves = ([meta.shard] if kind == "zero1" else tree_leaves(state))
+    kept = tree_leaves(state) + ([meta.shard] if kind == "zero1" else [])
+    rec = {"init_bytes": torch.cuda.memory_allocated() - base,
+           "state_bytes": sum(t.numel() * t.element_size() for t in kept)}
+    adamw = _fsdp_adamw(leaves)
+    step = make(meta)
+    grads, held, bits = {}, {}, []
+    sgd.register_step_pre_hook(lambda o, a, k: grads.update(
+        {n: p.grad.detach().clone() for n, p in zip(names, leaves)}))
+    if kind == "zero1":
+        m = meta.flat
+        lo = m.r * m.local
+        for o in (sgd, adamw):
+            o.register_step_pre_hook(lambda o, a, k: held.update(
+                before=meta.shard.detach().clone()))
+            o.register_step_post_hook(lambda o, a, k: held.update(
+                after=meta.shard.detach().clone()))
+    from kungfu_tpu_torch.comm import collectives as C
+    gather = C._gather_tiled
+    batch = par_batch(device)
+    undo = fsdp_plant(fault) if fault is not None else None
+    clock = None if fault is not None else _CollectiveClock(None,
+                                                            FSDP_CLOCKED)
+    _reset_flash_counts()
+    FS.reset_gathered()
+    losses, seconds, peaks = [], [], []
+    try:
+        for i, opt_kind in enumerate(steps):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses.append(float(step(state, sgd if opt_kind == "sgd"
+                                     else adamw, batch)))
+            seconds.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            if kind == "zero1":
+                with torch.no_grad():
+                    want = held["before"] + (held["after"] - held["before"])
+                    bits.append(int((state[lo:lo + m.local] != want).sum()))
+            if name == "A" and fault is None and i + 1 == FSDP_SAVE_AT:
+                t0 = time.perf_counter()
+                Checkpointer(os.path.join(tmp, "ck")).save(
+                    i + 1, FS.fsdp_state_dict(state, adamw, meta),
+                    meta={"step": i + 1})
+                rec["save_s"] = time.perf_counter() - t0
+                snap = {}
+                for k, v in state.items():
+                    size = meta.pieces[k].size
+                    for e, t in (("params", v.detach()),
+                                 ("exp_avg", adamw.state[v]["exp_avg"]),
+                                 ("exp_avg_sq",
+                                  adamw.state[v]["exp_avg_sq"])):
+                        t = _fsdp_full(t, gather)[..., :size]
+                        if rank == 0:
+                            snap[f"{e}/{k}"] = t.cpu()
+                rec["snapshot"] = snap if rank == 0 else None
+    finally:
+        if undo is not None:
+            undo()
+        if clock is not None:
+            rec["collectives"] = clock.take()
+            clock.close()
+    rec.update(losses=losses, step_seconds=seconds, peak_memory_gb=peaks)
+    if fault is None:
+        rec["launches"] = dict(FA.launches)
+        if kind == "scan":
+            rec["loss_after"] = fsdp_eval_loss(state, meta, fsdp_gpt_fns(cfg),
+                                               batch)
+        rec["gathered_peak_bytes"] = FS.gathered["peak"]
+        rec["gathered_calls"] = FS.gathered["calls"]
+        pieces = (meta.pieces if kind == "scan" else
+                  {"flat": meta.flat if kind == "zero1" else meta})
+        rec["bytes_f32"] = {k: 4 * p.local * p.n for k, p in pieces.items()}
+        rec["size"] = {k: p.size for k, p in pieces.items()}
+    if grads:
+        errs = _fsdp_grad_errors(kind, grads, meta, ref)
+        rec["grad_err_max"] = max(errs.values())
+        rec["grad_err_worst"] = _par_worst(errs)
+    if kind == "zero1":
+        rec["replica_bits_differ"] = bits
+        sums = torch.stack([c.view(torch.int32).sum(dtype=torch.int64)
+                            for c in state.chunk(64)]).cpu()
+        got = [torch.empty_like(sums) for _ in range(dist.get_world_size())]
+        dist.all_gather(got, sums)
+        rec["replicas_differ"] = [int((g != got[0]).sum()) for g in got]
+    del state, sgd, adamw, grads, held
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fsdp_restore(device, tmp, snap, group) -> dict:
+    """Rank 0 alone (``group``, a group of one): A's step-FSDP_SAVE_AT
+    checkpoint restored into the n = 1 layout, held bit for bit to A's
+    gathered parameters and moments (``snap``), then step 3 (AdamW): its
+    loss, AdamW's step count after it, and the loss at the parameters it
+    left (forward only)."""
+    from kungfu_tpu_torch.checkpoint import Checkpointer
+    from kungfu_tpu_torch.parallel import fsdp as FS
+    from kungfu_tpu_torch.parallel import threed as T3
+    cfg = par_config(FSDP_JOBS["A"][1])
+    init, make = FS.make_fsdp_scan_step(
+        *fsdp_gpt_fns(cfg), lambda ps: torch.optim.SGD(ps, lr=PAR_SGD_LR),
+        group=group)
+    state, _, meta = init(fsdp_split(T3.init_gpt(cfg, None, seed=0,
+                                                 device=device)))
+    adamw = _fsdp_adamw(tree_leaves(state))
+    t0 = time.perf_counter()
+    at, meta_json = FS.load_fsdp_state_dict(
+        Checkpointer(os.path.join(tmp, "ck")), state, adamw, meta)
+    restore_s = time.perf_counter() - t0
+    differ = {}
+    for k, v in state.items():
+        got = {"params": v.detach()}
+        got.update({e: adamw.state[v][e] for e in ("exp_avg", "exp_avg_sq")})
+        for e, t in got.items():
+            differ[f"{e}/{k}"] = int((t.cpu() != snap[f"{e}/{k}"]).sum())
+    batch = par_batch(device)
+    t0 = time.perf_counter()
+    loss = float(make(meta)(state, adamw, batch))
+    step3_s = time.perf_counter() - t0
+    return {"step": at, "meta": meta_json, "restore_s": restore_s,
+            "adam_step": [float(adamw.state[v]["step"])
+                          for v in tree_leaves(state)],
+            "bits_differ": differ, "step3_loss": loss,
+            "step3_seconds": step3_s,
+            "loss_after": fsdp_eval_loss(state, meta, fsdp_gpt_fns(cfg),
+                                         batch)}
+
+
+def fsdp_gpt_worker(rank: int, world: int, tmp: str) -> None:
+    """A rank of ``fsdp_gpt_470m``: joins a gloo group through the
+    FileStore in ``tmp``, runs jobs A, B and C with their planted faults
+    after each, and on rank 0 the restore at n = 1.  Writes
+    ``tmp``/r<rank>.json."""
+    from kungfu_tpu_torch.comm.mesh import init_process_group_file
+    device = resolve_device("cuda")
+    torch.set_num_threads(2)
+    init_process_group_file(os.path.join(tmp, "store"), rank, world,
+                            "gloo", timeout_s=PAR_TIMEOUT_S)
+    solo = dist.new_group([0])
+    ref = torch.load(os.path.join(tmp, "oracle.pt"), mmap=True,
+                     weights_only=True)
+    rec = {"rank": rank}
+    snap = None
+    for name in FSDP_JOBS:
+        rec[name] = fsdp_job(name, device, ref, tmp, rank)
+        snap = rec[name].pop("snapshot", snap)
+        rec[name]["faults"] = {
+            f: fsdp_job(name, device, ref, tmp, rank, fault=f)
+            for f in FSDP_FAULTS.get(name, ())}
+    if rank == 0:
+        rec["restore"] = fsdp_restore(device, tmp, snap, solo)
+    dist.barrier()
+    with open(os.path.join(tmp, f"r{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def fsdp_launches_needed(layers: int, steps: int) -> dict:
+    """K1-K4 launches a rank of A makes: every layer of every step runs
+    the flash forward twice (the step, then its recompute in the
+    backward: remat) and the backward kernels once."""
+    return {"fa_fwd": 2 * layers * steps, "fa_delta": layers * steps,
+            "fa_bwd_dq": layers * steps, "fa_bwd_dkv": layers * steps}
+
+
+def phase_fsdp_gpt_470m(device, smi: str) -> dict:
+    """The slice's path: the 470m GPT under ``parallel.fsdp`` in 2 gloo
+    ranks sharing the card (FSDP_JOBS A, B and C), against one process
+    (``par_oracle``: flash attention, the same weights, rows and
+    optimizers).  Gates: every rank's losses in A, B and C within
+    PAR_LOSS_TOL of the one process's; the SGD step's gradient, tensor by
+    tensor, within FSDP_GRAD_TOL; A's K1-K4 launches exactly
+    ``fsdp_launches_needed``; A's gathered parameter bytes alive at once
+    at most one layer, the embedding and the head; A's SGD step's peak
+    below C's by at least the full f32 parameters less one layer; every
+    job's device memory after ``init`` its state and less than half a
+    layer more; A's checkpoint restored at n = 1 bit for bit, then its
+    step 3: its loss and the loss at the parameters it leaves within
+    PAR_LOSS_TOL of A's, AdamW's step count that of A's; each planted
+    fault caught (A's above FSDP_GRAD_TOL, B's by the replicas' bit
+    check, which B itself passes at every step).  Reports the step seconds, the collectives' seconds,
+    share and bytes a step by kind, every job's peak GB a rank and the
+    phase's own seconds.  Gloo's only routes are the port's:
+    ``reduce_scatter_tensor`` and ``all_gather_into_tensor`` on CUDA
+    tensors (``collectives._reduce_scatter_tiled``, ``_gather_tiled``)."""
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = par_oracle(device, FSDP_JOBS["A"][1],
+                         os.path.join(tmp, "oracle.pt"))
+        t0 = time.perf_counter()
+        _spawn([_worker_argv("fsdp_gpt_worker", r, FSDP_RANKS, tmp)
+                for r in range(FSDP_RANKS)], 900, tmp)
+        job_s = time.perf_counter() - t0
+        recs = []
+        for r in range(FSDP_RANKS):
+            with open(os.path.join(tmp, f"r{r}.json")) as f:
+                recs.append(json.load(f))
+    out, bad = fsdp_readings(recs, ref)
+    out.update(card=smi, job_s=job_s, seconds=time.perf_counter() - t_start,
+               budget_s=FSDP_BUDGET_S)
+    if bad:
+        raise RuntimeError("fsdp_gpt_470m: " + "; ".join(bad))
+    return out
+
+
+def fsdp_readings(recs, ref):
+    """``phase_fsdp_gpt_470m``'s record and its failed gates (a list of
+    messages) from the ranks' records and the one process's run."""
+    out, bad = {"ranks": FSDP_RANKS, "backend": "gloo"}, []
+    out["oracle"] = {k: ref[k] for k in ("losses", "step_seconds",
+                                         "peak_memory_gb", "wall_s")}
+    for name, (kind, layers, steps) in FSDP_JOBS.items():
+        jobs = [r[name] for r in recs]
+        want = ref["losses"][:len(steps)]
+        gaps = [max(abs(a - b) for a, b in zip(j["losses"], want))
+                for j in jobs]
+        for r, (j, gap) in enumerate(zip(jobs, gaps)):
+            if not all(math.isfinite(x) for x in j["losses"]) \
+                    or not gap <= PAR_LOSS_TOL:
+                bad.append(f"{name} rank {r}: losses {j['losses']} vs "
+                           f"{want} (limit {PAR_LOSS_TOL})")
+            if not j["grad_err_max"] <= FSDP_GRAD_TOL:
+                bad.append(f"{name} rank {r}: gradient "
+                           f"{j['grad_err_worst']} above {FSDP_GRAD_TOL}")
+        n_steps = len(steps)
+        kinds = sorted({k for j in jobs for k in j["collectives"]})
+        out[name] = {
+            "kind": kind, "layers": layers, "steps": list(steps),
+            "losses": jobs[0]["losses"], "loss_gap_max": max(gaps),
+            "grad_err_max": [j["grad_err_max"] for j in jobs],
+            "grad_err_worst_rank0": jobs[0]["grad_err_worst"],
+            "launches": [j["launches"] for j in jobs],
+            "step_seconds": [j["step_seconds"] for j in jobs],
+            "collective_share": [
+                sum(s["s"] for s in j["collectives"].values())
+                / sum(j["step_seconds"]) for j in jobs],
+            "collective_bytes_a_step": {
+                k: [j["collectives"].get(k, {"bytes": 0})["bytes"] / n_steps
+                    for j in jobs] for k in kinds},
+            "collective_s_a_step": {
+                k: [j["collectives"].get(k, {"s": 0.0})["s"] / n_steps
+                    for j in jobs] for k in kinds},
+            "peak_memory_gb": [j["peak_memory_gb"] for j in jobs],
+            "gathered_peak_bytes": [j["gathered_peak_bytes"] for j in jobs],
+            "gathered_calls": [j["gathered_calls"] for j in jobs],
+            "bytes_f32": jobs[0]["bytes_f32"],
+            "save_s": [j.get("save_s") for j in jobs],
+            "faults": {f: {k: [j["faults"][f].get(k) for j in jobs]
+                           for k in ("grad_err_max", "grad_err_worst",
+                                     "losses", "replica_bits_differ")}
+                       for f in FSDP_FAULTS.get(name, ())}}
+        if kind == "zero1":
+            out[name]["replica_bits_differ"] = [j["replica_bits_differ"]
+                                                for j in jobs]
+            out[name]["replicas_differ"] = jobs[0]["replicas_differ"]
+            if any(any(j["replica_bits_differ"]) for j in jobs) \
+                    or any(jobs[0]["replicas_differ"]):
+                bad.append(f"B: replicas off JAX's rule "
+                           f"{out[name]['replica_bits_differ']} or apart "
+                           f"{jobs[0]['replicas_differ']}")
+    a = out["A"]
+    need = fsdp_launches_needed(FSDP_JOBS["A"][1], len(FSDP_JOBS["A"][2]))
+    out["A"]["launches_needed"] = need
+    for r, got in enumerate(a["launches"]):
+        if got != need:
+            bad.append(f"A rank {r}: launches {got}, the steps issue {need}")
+    pieces = a["bytes_f32"]
+    bound = pieces["layers"] + pieces["embed"] + pieces["head"]
+    a["gathered_bound_bytes"] = bound
+    if not max(a["gathered_peak_bytes"]) <= bound:
+        bad.append(f"A: gathered bytes alive at once "
+                   f"{a['gathered_peak_bytes']} above one layer, the "
+                   f"embedding and the head ({bound})")
+    full = out["C"]["bytes_f32"]["flat"]
+    margin = (full - pieces["layers"]) / 1e9
+    out["peak_gap_needed_gb"] = margin
+    for r in range(FSDP_RANKS):
+        pa, pc = a["peak_memory_gb"][r][0], out["C"]["peak_memory_gb"][r][0]
+        if not pc - pa >= margin:
+            bad.append(f"rank {r}: A's SGD step peak {pa} GB not below C's "
+                       f"{pc} GB by {margin} GB")
+    for f in FSDP_FAULTS["A"]:
+        e = max(a["faults"][f]["grad_err_max"])
+        if not e > FSDP_GRAD_TOL:
+            bad.append(f"A: planted {f} reads {e}, not above "
+                       f"{FSDP_GRAD_TOL}")
+    for f in FSDP_FAULTS["B"]:
+        got = out["B"]["faults"][f]["replica_bits_differ"]
+        if not any(any(x) for x in got):
+            bad.append(f"B: planted {f} passes the replicas' bit check {got}")
+    slack = pieces["layers"] // 2
+    out["init_slack_bytes"] = slack
+    for name in FSDP_JOBS:
+        out[name]["init_bytes"] = [(r[name]["init_bytes"],
+                                    r[name]["state_bytes"]) for r in recs]
+        for r, (got, held) in enumerate(out[name]["init_bytes"]):
+            if not got <= held + slack:
+                bad.append(f"{name} rank {r}: {got} B on the card after "
+                           f"init, above its state's {held} B by more than "
+                           f"{slack}")
+    res = recs[0]["restore"]
+    res["step3_loss_gap"] = abs(res["step3_loss"] - a["losses"][2])
+    a["loss_after"] = [r["A"]["loss_after"] for r in recs]
+    res["loss_after_gap"] = abs(res["loss_after"] - a["loss_after"][0])
+    adam_steps = PAR_STEPS[:FSDP_SAVE_AT + 1].count("adamw")
+    res["adam_step_needed"] = adam_steps
+    out["restore"] = res
+    if any(res["bits_differ"].values()) or res["step"] != FSDP_SAVE_AT:
+        bad.append(f"restore: step {res['step']}, bits differ "
+                   f"{res['bits_differ']}")
+    if any(x != adam_steps for x in res["adam_step"]):
+        bad.append(f"restore: AdamW's step after step 3 "
+                   f"{res['adam_step']}, not {adam_steps}")
+    if not res["step3_loss_gap"] <= PAR_LOSS_TOL:
+        bad.append(f"restore: step 3 loss {res['step3_loss']} vs A's "
+                   f"{a['losses'][2]}")
+    if not res["loss_after_gap"] <= PAR_LOSS_TOL:
+        bad.append(f"restore: loss after step 3 {res['loss_after']} vs "
+                   f"A's {a['loss_after']}")
+    out["tol"] = {"grad": FSDP_GRAD_TOL, "loss": PAR_LOSS_TOL}
+    return out, bad
+
+
 # the kernels' entry points in a ptxas report (nvcc names a source's
 # anonymous namespace after the file, "paged_attention_cu_<hash>")
 KERNEL_NAMES = r"(?:fa|paged_attention)_(?!cu_)\w+"
@@ -4074,6 +4624,10 @@ def main() -> int:
         phase_flash_check(device, PAR_FLASH_CASES)
         emit({"phase": "parallel_gpt_470m",
               **phase_parallel_gpt_470m(device, smi)})
+        return 0
+    if sys.argv[1:] == ["--fsdp"]:
+        phase_flash_check(device, PAR_FLASH_CASES)
+        emit({"phase": "fsdp_gpt_470m", **phase_fsdp_gpt_470m(device, smi)})
         return 0
     if sys.argv[1:] == ["--serving-tp"]:
         phase_k5_tp2(device)
@@ -4173,6 +4727,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "parallel_gpt_470m",
           **phase_parallel_gpt_470m(device, smi)})
+    torch.cuda.empty_cache()
+    emit({"phase": "fsdp_gpt_470m", **phase_fsdp_gpt_470m(device, smi)})
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
 
     print(BG.device_name(device), flush=True)

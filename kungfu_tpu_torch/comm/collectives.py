@@ -10,7 +10,8 @@ slice of the port.
 
 The differentiable collectives of the parallel envelope
 (:func:`ppermute`, :func:`all_to_all`, :func:`copy_to_group`,
-:func:`reduce_from_group`) are ``torch.autograd.Function`` s: the
+:func:`reduce_from_group`, :func:`gather_from_group`) are
+``torch.autograd.Function`` s: the
 gradient rules that ``shard_map``'s AD gives the JAX package for free.
 Their backward passes issue collectives too, so every rank of a group
 must run the same graph: autograd then issues them in the same order
@@ -58,6 +59,28 @@ def all_gather(x, group=None, axis: int = 0, tiled: bool = False):
     return tree_map(gather, x)
 
 
+def _gather_tiled(t, group):
+    """The ranks' ``t`` concatenated along axis 0 in rank order, into one
+    new tensor: one ``all_gather_into_tensor``, which NCCL and gloo take
+    on CPU and CUDA tensors alike (PERF.md)."""
+    n = dist.get_world_size(group)
+    t = t.contiguous()
+    out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out
+
+
+def _reduce_scatter_tiled(t, group):
+    """The sum over ranks of ``t`` (leading size divisible by the group
+    size), this rank's block of it: one ``reduce_scatter_tensor``, which
+    NCCL and gloo take on CPU and CUDA tensors alike (PERF.md)."""
+    n = dist.get_world_size(group)
+    t = t.contiguous()
+    out = t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
+    dist.reduce_scatter_tensor(out, t, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
 def reduce_scatter(x, group=None, axis: int = 0):
     """The sum over ranks, split along ``axis``; each rank keeps its own
     block (tiled, as ``lax.psum_scatter(..., tiled=True)``)."""
@@ -66,8 +89,8 @@ def reduce_scatter(x, group=None, axis: int = 0):
         if t.shape[axis] % n:
             raise ValueError(f"axis {axis} of size {t.shape[axis]} does not "
                              f"split over {n} ranks")
-        full = _reduce(t, group, "SUM")
-        return full.chunk(n, dim=axis)[dist.get_rank(group)].contiguous()
+        out = _reduce_scatter_tiled(t.movedim(axis, 0), group)
+        return out.movedim(0, axis).contiguous()
     return tree_map(rs, x)
 
 
@@ -234,6 +257,26 @@ def reduce_from_group(x, group):
     (sum) forward, the identity backward (``lax.psum`` of a value that
     varies over the axis; its cotangent is the same on every rank)."""
     return _ReduceFromGroup.apply(x, group)
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_tiled(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_tiled(g, ctx.group), None
+
+
+def gather_from_group(x, group):
+    """The tiled all-gather of ZeRO-3: every rank's ``x`` concatenated
+    along axis 0 in rank order (``lax.all_gather(..., axis=0,
+    tiled=True)``), whose gradient is the summing reduce-scatter: each
+    rank gets its block of the sum of the ranks' cotangents, the
+    transpose that shard_map's AD gives the gather in JAX."""
+    return _GatherFromGroup.apply(x, group)
 
 
 def pmax(x, group):

@@ -81,6 +81,24 @@ def shard_params(params, cfg: G.GPTConfig, mesh: Optional[ProcessMesh]):
                                                  G.param_specs(cfg)))
 
 
+def gather_params(params, cfg: G.GPTConfig, mesh: Optional[ProcessMesh]):
+    """The full tree from this rank's slices, the inverse of
+    :func:`shard_params` (JAX's global view of a sharded array): every
+    leaf ``param_specs`` splits is all-gathered over the tp group along
+    its dimension, a replicated one copied.  Collective over tp; a tree
+    of the same nesting, such as an Adam moment's, gathers alike.  What a
+    change of tp degree goes through: gather, checkpoint, and
+    :func:`shard_params` onto the new mesh."""
+    ntp = mesh.size(TP_AXIS) if mesh is not None else 1
+
+    def full(x, dim):
+        x = x.detach()
+        if dim is None or ntp == 1:
+            return x.clone()
+        return C.all_gather(x, mesh.group(TP_AXIS), axis=dim, tiled=True)
+    return tree_map(full, params, G.param_specs(cfg))
+
+
 def init_gpt(cfg: G.GPTConfig, mesh: Optional[ProcessMesh], seed: int = 0,
              device=None):
     """This rank's f32 parameter shards, from the full tree drawn from
