@@ -151,7 +151,7 @@ With no arguments:
    reverse rank order); step seconds, the collectives' share (each
    collective timed between two synchronizes) and bytes by kind, every
    rank's peak memory (``parallel_gpt_470m``);
-15. trains the 470m GPT at full width and depth under
+15. trains the 470m GPT at full width, ``FSDP_LAYERS`` deep, under
    ``parallel.fsdp`` in 2 gloo ranks sharing the card, one sequence of
    4096 tokens a rank, one SGD step and two AdamW steps, f32 master
    shards computed in bf16: job A layerwise ZeRO-3
@@ -172,7 +172,23 @@ With no arguments:
    caught (a reduce-scatter without the mean, rank 1's gather in reverse
    rank order, ZeRO-1 gathering the new parameters in place of the
    updates); the step seconds, the collectives' seconds, share and bytes
-   by kind, and every job's peak memory (``fsdp_gpt_470m``).
+   by kind, and every job's peak memory (``fsdp_gpt_470m``);
+16. trains the 470m GPT at full width, ``ELASTIC_LAYERS`` deep, under
+   ``elastic.ShardedElasticTrainer`` (flat ZeRO-3, AdamW; the parameters
+   and both moments sharded 1/n a rank) in gloo ranks sharing the card,
+   one job under the port's config server and watcher: 3 ranks, a
+   voluntary shrink to 1 (rank 1's block and its replica both leave, and
+   the hand-off keeps it), a grow to 2, rank 1 killed inside its
+   gradient reduce-scatter (the survivor re-shards from its block and the
+   ring replica and redoes the step at 1), a grow to 2 again; every
+   step's loss within the limit of one process's flat ZeRO-3 over the
+   same 10 batches, each re-shard's position-weighted digests equal to
+   the commit's, device memory after each at most the rank's state and
+   half a layer, ``local_state_bytes`` the own block and the
+   predecessor's, K1-K4 exactly a layer each a step, the finishing
+   ranks bit for bit equal, three planted faults caught; each event's
+   seconds and bytes, each commit's seconds, the step seconds at 3, 2
+   and 1 ranks (``sharded_elastic_470m``).
 
 Each phase prints a JSON line.  The last two lines are the kernels record
 and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; so
@@ -183,6 +199,9 @@ and z and runs only ``parallel_gpt_470m``.
 
 ``--fsdp`` builds the kernels, prints the card, checks FLASH_CASES y and
 z and runs only ``fsdp_gpt_470m``.
+
+``--sharded-elastic`` builds the kernels, prints the card and runs only
+``sharded_elastic_470m``.
 
 ``--serving-tp`` builds the kernels, prints the card, and runs only K5 at
 the tp-2 shapes, ``serve_470m`` (tp 2's reference), ``serve_470m_tp2``
@@ -4062,10 +4081,15 @@ def phase_parallel_gpt_470m(device, smi: str) -> dict:
 
 # ------------------------------------ phase 15: sharded data parallelism
 # job -> (step builder, layers, optimizer steps).  A: the slice's path,
-# layerwise ZeRO-3 (remat) at full width and depth; B: ZeRO-1; C: flat
-# ZeRO-3, whose monolithic gather's peak stands beside A's (its SGD step)
-FSDP_JOBS = {"A": ("scan", 24, PAR_STEPS), "B": ("zero1", 24, PAR_STEPS),
-             "C": ("flat", 24, PAR_STEPS[:1])}
+# layerwise ZeRO-3 (remat) at full width; B: ZeRO-1; C: flat ZeRO-3,
+# whose monolithic gather's peak stands beside A's (its SGD step).  Depth
+# cut from the preset's 24 layers to 12 when sharded_elastic_470m came:
+# the whole script took 1027.2 s on the H100 with it at 24 (PERF.md),
+# over the 1000 s it is held to; the gates are unchanged
+FSDP_LAYERS = 12
+FSDP_JOBS = {"A": ("scan", FSDP_LAYERS, PAR_STEPS),
+             "B": ("zero1", FSDP_LAYERS, PAR_STEPS),
+             "C": ("flat", FSDP_LAYERS, PAR_STEPS[:1])}
 FSDP_RANKS = 2
 FSDP_SAVE_AT = 2                 # A saves its state after this step
 FSDP_CE_CHUNK = 8192             # vocabulary chunk of the head's CE
@@ -4578,6 +4602,535 @@ def fsdp_readings(recs, ref):
     return out, bad
 
 
+# ------------------------------------------ phase 16: sharded elasticity
+SHARDED_RANKS = 3
+SHARDED_STEPS = 10
+# rank 0's proposals: (step count, cluster size) -> the size it proposes.
+# The first grow's rank 1 is killed inside its gradient reduce-scatter of
+# the step after SHARDED_KILL_AT (after that step count's commit)
+SHARDED_PROPOSALS = {(2, 3): 1, (4, 1): 2, (8, 1): 2}
+SHARDED_KILL_AT = 6
+# the cluster size of each step that stands (the killed step redone at 1)
+SHARDED_SIZES = [3, 3, 1, 1, 2, 2, 1, 1, 2, 2]
+# (old size, new size) of each re-shard after the fresh start
+SHARDED_EVENTS = [(3, 1), (1, 2), (2, 1), (1, 2)]
+SHARDED_COLLECTIVE_S = 120.0
+SHARDED_BUDGET_S = 150.0
+
+
+def _meta_tree(shapes):
+    """A tree of ``meta`` tensors of ``G.param_shapes``'s shapes: the
+    structure a rank that adopts its chunk passes as ``init_params``."""
+    if isinstance(shapes, dict):
+        return {k: _meta_tree(v) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [_meta_tree(v) for v in shapes]
+    return torch.empty(shapes, device="meta")
+
+
+# elements a digest reads at once (bounds its temporaries on the card)
+DIGEST_PIECE = 1 << 24
+
+
+def range_digest(t: torch.Tensor, start: int, size: int) -> int:
+    """Σ bits(t[i]) · (start + i + 1) over the elements of the 1-D ``t``
+    whose global index ``start + i`` is below ``size``, in wrapping int64
+    (bits as integers of the element's size).  Additive over ranges and
+    dependent on position: the digests of a vector's blocks in any layout
+    sum to the digest of the whole vector, and a block at the wrong
+    offset changes it."""
+    from kungfu_tpu_torch.elastic.multiproc import _INT_OF_SIZE
+    t = t.detach().reshape(-1)[:max(0, size - start)]
+    bits = t.view(_INT_OF_SIZE[t.element_size()])
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for i in range(0, bits.shape[0], DIGEST_PIECE):
+        piece = bits[i:i + DIGEST_PIECE].to(torch.int64)
+        pos = torch.arange(start + i + 1, start + i + 1 + piece.shape[0],
+                           dtype=torch.int64, device=t.device)
+        total += (piece * pos).sum()
+    return int(total)
+
+
+def _wrap64(x: int) -> int:
+    """``x`` as a wrapping int64 (the digests' arithmetic)."""
+    return (x + (1 << 63)) % (1 << 64) - (1 << 63)
+
+
+def sharded_elastic_worker() -> None:
+    """One rank of ``sharded_elastic_470m``, started by the port's watcher
+    (``python -c "import chip_smoke as S; S.sharded_elastic_worker()"``
+    with the worker flags): the 470m at ``ELASTIC_LAYERS`` under
+    ShardedElasticTrainer (flat ZeRO-3, AdamW, gloo, CUDA chunks), rank 0
+    proposing SHARDED_PROPOSALS, the first grow's rank 1 killed in its
+    reduce-scatter.  Notes every commit's digests of its blocks and every
+    re-shard's digests of its new chunks, its device memory, and the
+    digests of the two planted faults built from the same received
+    blocks (``events.<stream>.jsonl``, one line each, synced); one JSON
+    record of its run."""
+    import argparse
+    import signal
+    import kungfu_tpu_torch as kft
+    from kungfu_tpu_torch.elastic import sharded as SH
+    from kungfu_tpu_torch.elastic.multiproc import bit_sums, tree_digest
+    from kungfu_tpu_torch.launcher import env as E
+    from kungfu_tpu_torch.parallel import fsdp as FS
+    ap = argparse.ArgumentParser()
+    E.add_args(ap)
+    ap.add_argument("--out", default="")
+    ap.add_argument("--start-version", type=int, default=1)
+    ns = ap.parse_args(sys.argv[1:])
+    we = E.install(E.from_args(ns))
+    rank0, joined = we.rank(), we.cluster_version
+    victim = rank0 == 1 and joined == ns.start_version + 2
+    stream = f"r{rank0}_v{joined}"
+    device = resolve_device("cuda")
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    args = elastic_args()
+    cfg = BG.make_config(args)
+    # rank 0 of the fresh start holds the seeded weights (on the host:
+    # the card never holds the whole vector); every other rank the shapes
+    params = (G.init_params(torch.Generator().manual_seed(0), cfg)
+              if rank0 == 0 and joined == ns.start_version
+              else _meta_tree(G.param_shapes(cfg)))
+    lock = threading.Lock()
+
+    def note(kind, **kw):
+        with lock, open(os.path.join(ns.out, f"events.{stream}.jsonl"),
+                        "a") as f:
+            f.write(json.dumps({"kind": kind, "stream": stream, **kw})
+                    + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+
+    # cuBLAS's workspaces (this thread's handle and the autograd thread's)
+    # come with the first products and stay: made before the reading, they
+    # are not counted against the trainer's state
+    w = torch.ones(64, 64, device=device, requires_grad=True)
+    (w @ w).sum().backward()
+    del w
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    T = SH.ShardedElasticTrainer
+    real_commit, real_build, real_pre = T._commit, T._build, T._pre_teardown
+
+    def commit(self, force=False):
+        before = self.last_commit
+        real_commit(self, force)
+        if self.last_commit is not before:
+            _, chunk, _ = SH._layout(self._vec_size, self.n, self.n)
+            note("commit", version=self.version, seq=self.step_count,
+                 n=self.n, rank=self.rank, time=time.time(),
+                 digest={k: range_digest(v, self.rank * chunk,
+                                            self._vec_size)
+                         for k, v in self._vectors().items()},
+                 **{k: v for k, v in self.last_commit.items()
+                    if k not in ("seq", "n")})
+
+    def build(self):
+        sy, size = self._synced, self._vec_size
+        _, chunk, _ = SH._layout(size, self.n, self.n)
+        lo, hi = sy["lo"], sy["hi"]
+        real_build(self)
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated() - base
+        vecs = self._vectors()
+        misses = {}
+        if sy["M"] is not None:
+            # the planted faults, from the blocks this re-shard received:
+            # the replicas zeroed (every block but this rank's own at M),
+            # and the new block length where the old one belongs
+            own = (self._slots[sy["M"]]["rank"] if sy["M"] in self._slots
+                   else None)
+            for k in sy["names"]:
+                got, dt = sy["pulled"][k], sy["dtypes"][k]
+                for fault, pulled, ob in (
+                        ("zero_replica", {r: b for r, b in got.items()
+                                          if r == own}, sy["old_block"]),
+                        ("wrong_offset", got, chunk)):
+                    c = self._assemble(k, lo, hi, ob, pulled, dt, out=(
+                        torch.zeros(hi - lo, dtype=dt, device=device)))
+                    live = vecs[k][:hi - lo]
+                    misses.setdefault(fault, {})[k] = {
+                        "digest": range_digest(c, lo, size),
+                        "differ": int((c != live).sum()),
+                        "max_abs": float((c.float() - live.float()).abs()
+                                         .max()) if c.numel() else 0.0}
+                    del c, live
+        small = {k: float(v) for k, v in self._small().items()
+                 if isinstance(v, torch.Tensor)} if len(vecs) > 1 else {}
+        note("reshard", **self.reshards[-1], n=self.n, lo=lo, hi=hi,
+             names=sorted(vecs), mem_bytes=mem,
+             state_bytes=sum(v.numel() * v.element_size()
+                             for v in vecs.values()),
+             digest={k: range_digest(v, lo, size)
+                     for k, v in vecs.items()},
+             faults=misses, small=small, time=time.time())
+
+    handoffs = []
+
+    def pre_teardown(self, old_peers, new_peers):
+        real_pre(self, old_peers, new_peers)
+        h = self.last_handoff
+        if h is not None:
+            held = sorted(self._held[max(self._held)])
+            handoffs.append({**h, "version": self.version, "n": self.n,
+                             "rank": self.rank, "held": held,
+                             "before": [r for r in held
+                                        if r not in h["blocks"]]})
+
+    T._commit, T._build, T._pre_teardown = commit, build, pre_teardown
+    tr = None
+    real_sync = FS.fsdp_grad_sync
+
+    def sync_then_die(gflat, group=None):
+        # the reduce-scatter runs on a thread; the rank dies 50 ms into it
+        if victim and tr.step_count == SHARDED_KILL_AT:
+            threading.Thread(target=real_sync, args=(gflat, group),
+                             daemon=True).start()
+            time.sleep(0.05)
+            note("kill", time=time.time(),
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            os.kill(os.getpid(), signal.SIGKILL)
+        return real_sync(gflat, group)
+    FS.fsdp_grad_sync = sync_then_die
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = T(BG.make_loss_fn(args, cfg), lambda leaves, n: _fsdp_adamw(leaves),
+           params, device=device, collective_timeout_s=SHARDED_COLLECTIVE_S)
+    del params
+    rec = {"rank0": rank0, "joined": joined, "stream": stream,
+           "construct_s": time.perf_counter() - t0, "steps": [],
+           "resizes": []}
+    reform = tr._reform
+
+    def reform_and_time(peers, version):
+        n0 = tr.n
+        out = reform(peers, version)
+        rec["resizes"].append({"from": n0, "to": len(peers),
+                               "version": version,
+                               "seconds": tr.last_resize_seconds})
+        return out
+    tr._reform = reform_and_time
+    while tr.step_count < SHARDED_STEPS:
+        i = tr.step_count
+        want = SHARDED_PROPOSALS.get((i, tr.n))
+        if tr.rank == 0 and want is not None:
+            if not tr.propose_new_size(want):
+                raise RuntimeError(f"proposal of {want} ranks refused")
+        seen, version = len(tr.recoveries), tr.version
+        before = dict(FA.launches)
+        t0 = time.perf_counter()
+        loss = tr.step(elastic_batch(i, device))
+        if loss is None:
+            break
+        seconds = time.perf_counter() - t0
+        _, chunk, _ = SH._layout(tr._vec_size, tr.n, tr.n)
+        nvec = len(tr._vectors())
+        rec["steps"].append({
+            "batch": i, "step": tr.step_count, "n": tr.n, "loss": loss,
+            "seconds": seconds, "recovered": len(tr.recoveries) > seen,
+            "resized": tr.version != version,
+            "launches": {k: FA.launches[k] - before[k] for k in before},
+            "state_bytes": [tr.local_state_bytes(),
+                            4 * chunk * nvec * (2 if tr.n > 1 else 1)]})
+    rec["detached"] = kft.detached()
+    if not rec["detached"]:
+        p = tr.current_params()
+        rec["final_digest"] = tree_digest(p, bit_sums(p))
+        del p
+        rec.update(trained_samples=tr.trained_samples, version=tr.version,
+                   size=tr.n)
+    rec.update(recoveries=tr.recoveries, reshards=tr.reshards,
+               handoffs=handoffs,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    with open(os.path.join(ns.out, f"{stream}.json"), "w") as f:
+        json.dump(rec, f)
+    tr.shutdown()
+
+
+def sharded_job(tmp: str, timeout: float = 400) -> dict:
+    """The phase's one job through the port's config server and watcher:
+    SHARDED_RANKS ranks of :func:`sharded_elastic_worker`.  The workers'
+    records and events, the watcher's exclusions and exit codes."""
+    from kungfu_tpu_torch.elastic import ConfigServer
+    from kungfu_tpu_torch.launcher import env as E
+    from kungfu_tpu_torch.launcher.watch import watch_run
+    from kungfu_tpu_torch.plan import Cluster, HostList
+    out = os.path.join(tmp, "sharded")
+    os.makedirs(out)
+    server = ConfigServer().start()
+    here = os.path.dirname(os.path.abspath(__file__))
+    exclusions = []
+    t0 = time.perf_counter()
+    try:
+        start = server.put_cluster(Cluster.from_hostlist(
+            HostList.parse(f"127.0.0.1:{SHARDED_RANKS}"), SHARDED_RANKS))
+
+        def argv_for(rank, cluster, version):
+            return [sys.executable, "-c",
+                    "import chip_smoke as S; S.sharded_elastic_worker()",
+                    "--out", out, "--start-version", str(start),
+                    *E.worker_argv(rank, cluster.workers, version,
+                                   server.url, os.path.join(tmp, "rdzv"))]
+        exits = watch_run(server, argv_for, out,
+                          env=dict(os.environ, PYTHONPATH=here), cwd=here,
+                          timeout=timeout, exclusions=exclusions)
+        version, cluster = server.get_cluster()
+    finally:
+        server.stop()
+    recs, events = [], []
+    for fn in sorted(os.listdir(out)):
+        with open(os.path.join(out, fn)) as f:
+            if fn.endswith(".json"):
+                recs.append(json.load(f))
+            elif fn.endswith(".jsonl"):
+                events += [json.loads(ln) for ln in f.read().splitlines()]
+    return {"recs": recs, "events": events, "exits": exits, "start": start,
+            "exclusions": exclusions, "server_version": version,
+            "server_size": cluster.size(),
+            "wall_s": time.perf_counter() - t0}
+
+
+def sharded_reference(device) -> dict:
+    """One process's flat ZeRO-3 (``make_fsdp_step`` in a world of one)
+    over the phase's SHARDED_STEPS global batches from rank 0's seeded
+    weights, AdamW as the job's."""
+    from kungfu_tpu_torch.parallel import fsdp as FS
+    args = elastic_args()
+    cfg = BG.make_config(args)
+    losses, seconds = [], []
+    t_start = time.perf_counter()
+    with BG.solo_group(device):
+        params = G.init_params(torch.Generator().manual_seed(0), cfg)
+        params = {k: ([{n: t.to(device) for n, t in lay.items()}
+                       for lay in v] if k == "layers" else v.to(device))
+                  for k, v in params.items()}
+        init, make = FS.make_fsdp_step(BG.make_loss_fn(args, cfg),
+                                       _fsdp_adamw)
+        shard, opt, meta = init(params)
+        del params
+        step = make(meta)
+        for i in range(SHARDED_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(shard, opt, elastic_batch(i, device))))
+            seconds.append(time.perf_counter() - t0)
+        state_bytes = 3 * shard.numel() * shard.element_size()
+        del shard, opt, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_seconds": seconds,
+            "state_bytes": state_bytes,
+            "wall_s": time.perf_counter() - t_start}
+
+
+def sharded_readings(res: dict, ref: dict):
+    """``sharded_elastic_470m``'s record and its failed gates (a list of
+    messages) from the job's records and events and the one process's
+    run."""
+    from kungfu_tpu_torch.elastic import sharded as SH
+    bad = []
+    recs, events = res["recs"], res["events"]
+    r0 = next(r for r in recs if r["rank0"] == 0
+              and r["joined"] == res["start"])
+    eff = _effective(r0)
+    sizes, batches = [s["n"] for s in eff], [s["batch"] for s in eff]
+    if sizes != SHARDED_SIZES or batches != list(range(SHARDED_STEPS)):
+        bad.append(f"steps at sizes {sizes}, batches {batches}")
+    gaps = [abs(s["loss"] - ref["losses"][s["batch"]]) for s in eff]
+    if not all(math.isfinite(s["loss"]) for s in eff) \
+            or not max(gaps) <= PAR_LOSS_TOL:
+        bad.append(f"losses apart from one process by {gaps} (limit "
+                   f"{PAR_LOSS_TOL})")
+    L = ELASTIC_LAYERS
+    for r in recs:
+        for s in r["steps"]:
+            want = {k: L * (2 if s["recovered"] else 1) for k in
+                    ("fa_fwd", "fa_delta", "fa_bwd_dq", "fa_bwd_dkv")}
+            if s["launches"] != want:
+                bad.append(f"{r['stream']} step {s['step']}: launches "
+                           f"{s['launches']}, want {want}")
+            if s["state_bytes"][0] != s["state_bytes"][1]:
+                bad.append(f"{r['stream']} step {s['step']}: "
+                           f"local_state_bytes {s['state_bytes']}")
+    alive = [r for r in recs if not r["detached"]]
+    finals = {r["stream"]: r.get("final_digest") for r in alive}
+    if len(alive) != 2 or len(set(finals.values())) != 1 \
+            or {r["trained_samples"] for r in alive} != {
+                SHARDED_STEPS * ELASTIC_ROWS}:
+        bad.append(f"the finishing ranks {finals}, samples "
+                   f"{[r.get('trained_samples') for r in alive]}")
+    if len(res["exclusions"]) != 1 or res["server_size"] != 2:
+        bad.append(f"exclusions {res['exclusions']}, final size "
+                   f"{res['server_size']}")
+    # the re-shards: the digest of every vector summed over the new ranks
+    # against the sum the old ranks noted when they committed M
+    commits = [e for e in events if e["kind"] == "commit"]
+    reshards = {}
+    for e in events:
+        if e["kind"] == "reshard":
+            reshards.setdefault(e["version"], []).append(e)
+    shapes = G.param_shapes(BG.make_config(elastic_args()))
+    numel = lambda d: sum(math.prod(v) for v in d.values())
+    layer = numel(shapes["layers"][0])
+    size = layer * len(shapes["layers"]) + numel(
+        {k: v for k, v in shapes.items() if k != "layers"})
+    slack = layer * 4 // 2           # half a layer of f32
+    out_events = []
+    for version in sorted(reshards):
+        evs = sorted(reshards[version], key=lambda e: e["rank"])
+        n, M, from_n = evs[0]["n"], evs[0]["M"], evs[0]["from_n"]
+        if [e["rank"] for e in evs] != list(range(n)) or {
+                e["M"] for e in evs} != {M}:
+            bad.append(f"v{version}: re-shard records {evs}")
+            continue
+        for e in evs:
+            if not e["mem_bytes"] <= e["state_bytes"] + slack:
+                bad.append(f"v{version} rank {e['rank']}: {e['mem_bytes']} "
+                           f"B on the card after the re-shard, its state "
+                           f"{e['state_bytes']} + {slack}")
+            if M is not None and len(e["names"]) > 1 \
+                    and e["small"].get("step") != float(M):
+                bad.append(f"v{version} rank {e['rank']}: AdamW step "
+                           f"{e['small']}, M {M}")
+        row = {"version": version, "from_n": from_n, "to_n": n, "M": M,
+               "seconds": max(e["seconds"] for e in evs),
+               "build_seconds": max(e["build_seconds"] for e in evs),
+               "sent_bytes": [e["sent_bytes"] for e in evs],
+               "received_bytes": [e["received_bytes"] for e in evs],
+               "mem_bytes": [e["mem_bytes"] for e in evs],
+               "state_bytes": [e["state_bytes"] for e in evs]}
+        out_events.append(row)
+        if M is None:
+            continue
+        old = {}
+        for c in commits:
+            if c["seq"] == M and c["n"] == from_n and c["version"] < version:
+                old[c["rank"]] = c    # the latest such commit of each rank
+        if sorted(old) != list(range(from_n)):
+            bad.append(f"v{version}: commits of M={M} at {from_n} ranks "
+                       f"noted by {sorted(old)}")
+            continue
+        names = evs[0]["names"]
+        want = {k: _wrap64(sum(c["digest"][k] for c in old.values()))
+                for k in names}
+        got = {k: _wrap64(sum(e["digest"][k] for e in evs)) for k in names}
+        row["digest_equal"] = got == want
+        if got != want:
+            bad.append(f"v{version}: re-sharded digests {got} != M's {want}")
+        row["faults"] = {}
+        for fault in ("zero_replica", "wrong_offset"):
+            fd = {k: _wrap64(sum(e["faults"][fault][k]["digest"]
+                                 for e in evs)) for k in names}
+            caught = fd != want
+            row["faults"][fault] = {
+                "caught": caught,
+                "differ": sum(e["faults"][fault][k]["differ"]
+                              for e in evs for k in names),
+                "max_abs": max(e["faults"][fault][k]["max_abs"]
+                               for e in evs for k in names)}
+            # from one old block, block 0 lies at 0 whatever the length
+            if not caught and (fault == "zero_replica" or from_n > 1):
+                bad.append(f"v{version}: planted {fault} passes the "
+                           f"digest gate")
+    if [(e["from_n"], e["to_n"]) for e in out_events
+            if e["M"] is not None] != SHARDED_EVENTS:
+        bad.append(f"re-shards {[(e['from_n'], e['to_n'], e['M']) for e in out_events]}")
+    # the third fault: the 3 -> 1 shrink without the hand-off
+    handoffs = [h for r in recs for h in r["handoffs"]]
+    hand = [h for h in handoffs if h["received_bytes"]]
+    no_handoff = None
+    if len(hand) != 1:
+        bad.append(f"hand-offs that moved bytes: {handoffs}")
+    else:
+        h = hand[0]
+        old_block = SH._layout(size, h["n"], h["n"])[2]
+        try:
+            SH.plan_transfers([[r in h["before"] for r in range(h["n"])]],
+                              old_block, size, size)
+            bad.append(f"the shrink without its hand-off ({h['before']} "
+                       f"held) planned a re-shard")
+        except SH.ShardedStateError as e:
+            no_handoff = {"held": h["before"], "raised": str(e)}
+    commit_s, copy_s = {}, {}
+    for c in commits:
+        if c["seq"] > 0:
+            commit_s.setdefault(c["n"], []).append(c["seconds"])
+            copy_s.setdefault(c["n"], []).append(c["copy_seconds"])
+    step_s = {}
+    for s in eff:
+        if not (s["resized"] or s["recovered"]) and s["step"] > 1:
+            step_s.setdefault(s["n"], []).append(s["seconds"])
+    kill = [e["time"] for e in events if e["kind"] == "kill"]
+    rcv = r0["recoveries"][0] if r0["recoveries"] else None
+    timeline = None
+    if rcv is not None and kill:
+        timeline = {k: rcv[f"t_{k}"] - kill[0] for k in (
+            "error", "version", "reformed", "restored", "step")}
+    out = {"ranks": SHARDED_RANKS, "layers": L, "backend": "gloo",
+           "steps": SHARDED_STEPS, "sizes": sizes,
+           "losses": [s["loss"] for s in eff],
+           "reference_losses": ref["losses"], "loss_gaps": gaps,
+           "max_loss_gap": max(gaps), "loss_tol": PAR_LOSS_TOL,
+           "reference_step_seconds": ref["step_seconds"],
+           "state_bytes_one_rank": ref["state_bytes"],
+           "events": out_events, "resizes": r0["resizes"],
+           "handoffs": handoffs, "no_handoff": no_handoff,
+           "recovery": rcv and {k: rcv[k] for k in (
+               "cause", "from_size", "size", "restored", "rewound",
+               "restore_bytes")},
+           "kill_timeline_s": timeline,
+           "commit_seconds_by_ranks": {n: statistics.median(v)
+                                       for n, v in commit_s.items()},
+           "commit_seconds_all": commit_s,
+           "commit_copy_seconds_by_ranks": {n: statistics.median(v)
+                                            for n, v in copy_s.items()},
+           "step_seconds_by_ranks": step_s,
+           "construct_s": {r["stream"]: r["construct_s"] for r in recs},
+           "peak_memory_gb": {r["stream"]: r["peak_memory_gb"]
+                              for r in recs},
+           "launches_a_step": {k: L for k in ("fa_fwd", "fa_delta",
+                                               "fa_bwd_dq", "fa_bwd_dkv")},
+           "exits": res["exits"], "exclusions": res["exclusions"],
+           "final_digests": finals, "job_wall_s": res["wall_s"]}
+    return out, bad
+
+
+def phase_sharded_elastic_470m(device, smi: str) -> dict:
+    """The 470m at ``ELASTIC_LAYERS`` under ShardedElasticTrainer in gloo
+    ranks sharing the card: 3 ranks, a voluntary shrink to 1 (rank 1's
+    block and its replica both leave: the hand-off keeps it), a grow to 2
+    (the newcomer pulls its half), rank 1 killed mid-step (the survivor
+    re-shards from its block and the ring replica and redoes the step at
+    1), a grow to 2 again.  Gates: every step's loss within PAR_LOSS_TOL
+    of one process's flat ZeRO-3 over the same batches; each re-shard's
+    position-weighted digests of the parameters and both moments, summed
+    over the new ranks, equal to those the old ranks noted when they
+    committed M; device memory after each re-shard at most the rank's
+    state plus half a layer; AdamW's step M; ``local_state_bytes`` the
+    own block and the predecessor's; K1-K4 exactly a layer each a step
+    (twice in the redone step); the finishing ranks' parameters bit for
+    bit equal; the planted faults caught (a zeroed replica and the new
+    block length in ``_assemble`` by the digest gate, the shrink without
+    its hand-off by the plan's "on no survivor")."""
+    from concurrent.futures import ThreadPoolExecutor
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(1) as pool:
+        # the one process runs while the job's ranks start (for the
+        # budget: its step seconds carry their load)
+        job = pool.submit(sharded_job, tmp)
+        ref = sharded_reference(device)
+        res = job.result()
+    out, bad = sharded_readings(res, ref)
+    out.update(card=smi, reference_wall_s=ref["wall_s"],
+               seconds=time.perf_counter() - t_start,
+               budget_s=SHARDED_BUDGET_S)
+    if bad:
+        raise RuntimeError("sharded_elastic_470m: " + "; ".join(bad))
+    return out
+
+
 # the kernels' entry points in a ptxas report (nvcc names a source's
 # anonymous namespace after the file, "paged_attention_cu_<hash>")
 KERNEL_NAMES = r"(?:fa|paged_attention)_(?!cu_)\w+"
@@ -4628,6 +5181,10 @@ def main() -> int:
     if sys.argv[1:] == ["--fsdp"]:
         phase_flash_check(device, PAR_FLASH_CASES)
         emit({"phase": "fsdp_gpt_470m", **phase_fsdp_gpt_470m(device, smi)})
+        return 0
+    if sys.argv[1:] == ["--sharded-elastic"]:
+        emit({"phase": "sharded_elastic_470m",
+              **phase_sharded_elastic_470m(device, smi)})
         return 0
     if sys.argv[1:] == ["--serving-tp"]:
         phase_k5_tp2(device)
@@ -4729,6 +5286,9 @@ def main() -> int:
           **phase_parallel_gpt_470m(device, smi)})
     torch.cuda.empty_cache()
     emit({"phase": "fsdp_gpt_470m", **phase_fsdp_gpt_470m(device, smi)})
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded_elastic_470m",
+          **phase_sharded_elastic_470m(device, smi)})
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
 
     print(BG.device_name(device), flush=True)

@@ -29,7 +29,10 @@ call :meth:`DistributedElasticTrainer._recover`, which
    exists (the watcher's exclusion of the dead), beating the heartbeat;
    past ``recover_timeout`` it raises the error that started it;
 4. returns None when that version drops this rank (detached);
-5. re-forms the group at that version, with no consensus over the old
+5. waits, with a FileStore rendezvous, until every survivor of that
+   version has come, and moves on to a newer version if one appears
+   first (a second death the watcher excluded a poll later); then
+   re-forms the group at that version, with no consensus over the old
    group (a dead member cannot vote), and checks MIN == MAX of the
    version on the new one;
 6. restores the new rank 0's published commit, state and counters
@@ -51,6 +54,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+import os
 import sys
 import time
 import traceback
@@ -131,6 +135,11 @@ class DistributedElasticTrainer(ElasticTrainer):
     :class:`~.trainer.ElasticTrainer`.  ``heartbeat_s``: seconds between
     liveness-lease renewals (None: the worker's ``--kf-heartbeat-s``; 0:
     none)."""
+
+    # whether a commit is a collective (the sharded trainer's replica
+    # exchange): then a peer that fails it is recovered from like one
+    # that fails the step
+    collective_commit = False
 
     def __init__(self, loss_fn: Callable, optimizer_factory: Callable,
                  init_params, env: Optional[E.WorkerEnv] = None,
@@ -344,18 +353,24 @@ class DistributedElasticTrainer(ElasticTrainer):
             loss = super().step(global_batch)
             self._last_step_s = time.perf_counter() - t0
             measure = self._cadence_due()
+            if self.collective_commit:
+                self._commit_due(measure)
         except LOCAL_ERRORS:
             raise
         except PEER_ERRORS as e:
             if _flags.is_detached():
                 raise
             return self._recover(global_batch, e)
-        # a commit is local: an error the committer kept is raised here
+        if not self.collective_commit:
+            # a local commit: an error the committer kept is raised here
+            self._commit_due(measure)
+        return loss
+
+    def _commit_due(self, measure: bool) -> None:
         if measure:
             self._measure_commit()
         elif self.step_count % self.snapshot_every == 0:
             self._commit()
-        return loss
 
     # ---------------------------------------------------------- recovery
     def _next_version(self, deadline: float):
@@ -371,6 +386,31 @@ class DistributedElasticTrainer(ElasticTrainer):
                 return version, cluster
             time.sleep(_RECOVER_POLL_S)
         return None
+
+    def _survivors_arrived(self, peers: PeerList, version: int,
+                           deadline: float) -> bool:
+        """Wait until every member of ``peers`` that this rank's group had
+        (the survivors, as far as it knows) has reached version
+        ``version``'s rendezvous.  False when a newer version appears
+        first, or at ``deadline``: a member of this one is dead too.
+        Only a FileStore rendezvous is watched this way."""
+        if self.rendezvous is None:
+            return True
+        expect = sum(p in self.peers for p in peers)
+        store = dist.FileStore(os.path.join(
+            self.rendezvous, f"v{version}.survivors"), expect)
+        store.add("arrived", 1)
+        while store.add("arrived", 0) < expect:
+            if time.monotonic() > deadline:
+                return False
+            try:
+                if fetch_config(self.config_server_url)[0] > version:
+                    return False
+            except (OSError, ValueError, KeyError):
+                pass              # unreachable for now: keep waiting
+            self._beat()
+            time.sleep(_RECOVER_POLL_S)
+        return True
 
     def _rejoin(self, peers: PeerList, version: int, deadline: float):
         """Form the data group of ``peers`` at ``version`` (no consensus
@@ -457,6 +497,10 @@ class DistributedElasticTrainer(ElasticTrainer):
                 self.version = version
                 _flags.set_cluster_version(version)
                 return None
+            if not self._survivors_arrived(cluster.workers, version,
+                                           deadline):
+                self.version = version    # a member is gone: the next one
+                continue
             try:
                 self._rejoin(cluster.workers, version, deadline)
                 break

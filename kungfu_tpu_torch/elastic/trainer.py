@@ -146,6 +146,13 @@ class ElasticTrainer:
         """One synchronous step on the global batch (every rank passes the
         same); this rank trains its contiguous block of it.  Returns the
         mean loss over the cluster."""
+        loss = self._train(global_batch)
+        self.step_count += 1
+        self.trained_samples += int(tree_leaves(global_batch)[0].shape[0])
+        return float(loss)
+
+    def _train(self, global_batch) -> torch.Tensor:
+        """The update of one step on this rank's block; the mean loss."""
         local = T._local_slice(global_batch, self.rank, self.n)
         rows = tree_leaves(local)[0].shape[0]
         accum = 1
@@ -154,10 +161,7 @@ class ElasticTrainer:
                 raise ValueError(f"a rank's {rows} rows do not split into "
                                  f"microbatches of {self.microbatch}")
             accum = rows // self.microbatch
-        loss = self._step_for(accum)(local, local=True)
-        self.step_count += 1
-        self.trained_samples += int(tree_leaves(global_batch)[0].shape[0])
-        return float(loss)
+        return self._step_for(accum)(local, local=True)
 
     # --------------------------------------------------------------- resize
     def resize(self, new_size: int) -> bool:
@@ -187,13 +191,14 @@ class ElasticTrainer:
         if new_peers == old_peers:
             self.session = Session(None, new_version)
             return True
+        self._pre_teardown(old_peers, new_peers)
         if me not in new_peers:
             D.shutdown()
             self._steps = {}
             _flags.set_detached(True)
             self.last_resize_seconds = time.perf_counter() - t0
             return True
-        carried = self.optimizer.state_dict()
+        carried = self._carried_state()
         self.peers, self.n = new_peers, len(new_peers)
         self.rank = new_peers.rank(me)
         D.reinit(new_peers, self.rank, new_version, self.rendezvous,
@@ -204,6 +209,17 @@ class ElasticTrainer:
         self._install(carried if got is None else got)
         self.last_resize_seconds = time.perf_counter() - t0
         return True
+
+    def _carried_state(self) -> Optional[dict]:
+        """What a survivor's rebuilt optimizer loads: its own state."""
+        return self.optimizer.state_dict()
+
+    def _pre_teardown(self, old_peers: PeerList, new_peers: PeerList
+                      ) -> None:
+        """Runs over the old group, every member alive, once the proposal
+        is agreed and before a leaving rank goes: a replica holds all it
+        needs, so nothing here (the sharded trainer hands the leaving
+        ranks' state to survivors)."""
 
     def _sync_state(self, newcomers: Optional[List[int]]) -> Optional[dict]:
         """Rank 0 sends its state to ``newcomers`` (ranks of the live

@@ -94,25 +94,25 @@ def fsdp_all_gather_params(param_shard: torch.Tensor, group=None
     return C.gather_from_group(param_shard, group)
 
 
-def _ravel(tree) -> Tuple[torch.Tensor, Callable]:
-    """``ravel_pytree``: the leaves concatenated in tree order, as f32,
-    and ``unravel(flat)``, which gives the tree back as views of ``flat``
-    (padding past the end ignored).  Its gradient reaches ``flat``
-    through one split, padding included, so the backward writes one
-    buffer.  ``unravel`` closes over the tree's structure alone, so the
-    input tree dies with its last outside reference."""
+def _unraveller(tree) -> Tuple[int, Callable]:
+    """The length of ``tree``'s flat vector and ``unravel(flat)``, which
+    gives the tree back as views of ``flat`` (padding past the end
+    ignored).  Its gradient reaches ``flat`` through one split, padding
+    included, so the backward writes one buffer.  Only the structure is
+    read (leaves on the ``meta`` device will do), and ``unravel`` closes
+    over it alone, so the input tree dies with its last outside
+    reference."""
     leaves = tree_leaves(tree)
     shapes = [tuple(t.shape) for t in leaves]
     sizes = [t.numel() for t in leaves]
     size = sum(sizes)
-    flat = torch.cat([t.detach().reshape(-1).float() for t in leaves])
     skeleton = tree_map(lambda _: None, tree)
 
     def unravel(f):
         parts = torch.split(f, sizes + [f.shape[0] - size])
         views = iter(p.view(s) for p, s in zip(parts, shapes))
         return tree_map(lambda _: next(views), skeleton)
-    return flat, unravel
+    return size, unravel
 
 
 def _chunk(flat: torch.Tensor, n: int, r: int) -> torch.Tensor:
@@ -167,14 +167,23 @@ class FlatMeta(NamedTuple):
     r: int
 
 
-def _flat_init(params, group) -> Tuple[torch.Tensor, FlatMeta]:
-    """Shared ZeRO init: ravel ``params``, pad to the group size; returns
-    the padded flat vector and its meta."""
+def flat_meta(tree, group=None) -> FlatMeta:
+    """The :class:`FlatMeta` of ``tree`` over ``group`` from its structure
+    alone: no flat vector is made, so a rank that will adopt its chunk
+    from elsewhere (an elastic re-shard) never holds the whole vector."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    flat, unravel = _ravel(params)
-    size = flat.shape[0]
-    flat = _pad_to(flat, n)
-    return flat, FlatMeta(unravel, size, flat.shape[0] // n, group, n, r)
+    size, unravel = _unraveller(tree)
+    return FlatMeta(unravel, size, -(-size // n), group, n, r)
+
+
+def _flat_init(params, group) -> Tuple[torch.Tensor, FlatMeta]:
+    """Shared ZeRO init: ravel ``params`` (``ravel_pytree``: the leaves
+    concatenated in tree order, as f32), pad to the group size; returns
+    the padded flat vector and its meta."""
+    meta = flat_meta(params, group)
+    flat = torch.cat([t.detach().reshape(-1).float()
+                      for t in tree_leaves(params)])
+    return _pad_to(flat, meta.n), meta
 
 
 def make_fsdp_step(loss_fn: Callable, optimizer: Callable, group=None
