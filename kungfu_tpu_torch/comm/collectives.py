@@ -10,12 +10,14 @@ slice of the port.
 
 The differentiable collectives of the parallel envelope
 (:func:`ppermute`, :func:`all_to_all`, :func:`copy_to_group`,
-:func:`reduce_from_group`, :func:`gather_from_group`) are
+:func:`reduce_from_group`, :func:`gather_from_group`, :func:`pmean`) are
 ``torch.autograd.Function`` s: the
 gradient rules that ``shard_map``'s AD gives the JAX package for free.
 Their backward passes issue collectives too, so every rank of a group
 must run the same graph: autograd then issues them in the same order
-everywhere.  :func:`pmax` takes no gradient.
+everywhere.  :func:`pmax` takes no gradient, and :func:`stage_handoff`
+(a pipeline's point-to-point tick) none either: its schedule sends the
+gradients back itself.
 """
 from __future__ import annotations
 
@@ -158,6 +160,38 @@ def ring_exchange(x, group, shift: int, n: int):
                   spec)
 
 
+def stage_handoff(x, group, shift: int = 1, ring: bool = False):
+    """One tick of a pipeline's stage hand-off over the pp ``group``:
+    this rank's ``x`` goes to rank + shift and the tensor of rank - shift
+    arrives, as ``lax.ppermute`` with ``perm=[(i, i + shift)]``.  With
+    ``ring`` the ranks wrap around (mod n: the interleaved schedule;
+    :func:`ring_exchange`); else the chain is open (GPipe's), and the
+    rank with no source gets zeros while the rank with no destination
+    sends nothing.  Every rank of the group calls it each tick with a
+    tensor of one shape.  Not differentiable: the pipeline's schedule
+    sends the gradients back itself (``shift=-1``).  Gloo's
+    point-to-point takes CPU tensors only, so on a gloo group a CUDA
+    tensor is staged through the host."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    if ring:
+        return ring_exchange(x, group, shift, n)
+    dst, src = me + shift, me - shift
+    staged = dist.get_backend(group) == "gloo" and x.is_cuda
+    send = (x.cpu() if staged else x).contiguous()
+    recv = torch.zeros_like(send)
+    ops = []
+    if 0 <= dst < n:
+        ops.append(dist.P2POp(dist.isend, send,
+                              dist.get_global_rank(group, dst), group))
+    if 0 <= src < n:
+        ops.append(dist.P2POp(dist.irecv, recv,
+                              dist.get_global_rank(group, src), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return recv.to(x.device)
+
+
 class _PPermute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, shift: int):
@@ -277,6 +311,26 @@ def gather_from_group(x, group):
     rank gets its block of the sum of the ranks' cotangents, the
     transpose that shard_map's AD gives the gather in JAX."""
     return _GatherFromGroup.apply(x, group)
+
+
+class _MeanFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, group, "MEAN")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def pmean(x, group):
+    """``lax.pmean`` of a value that varies over the group: the mean, the
+    same on every rank.  Its gradient is the identity, as ``shard_map``'s
+    AD transposes the psum of a varying value: every rank backpropagates
+    its own copy of the mean with the same cotangent c, its own term gets
+    c, and the parameter gradients summed over the ranks are those of
+    the copies' sum (n copies of a mean of n terms)."""
+    return _MeanFromGroup.apply(x, group)
 
 
 def pmax(x, group):

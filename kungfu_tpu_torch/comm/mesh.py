@@ -24,6 +24,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..utils.tree import tree_map
+
 PEER_AXIS = "kf_peers"      # flat data-parallel axis
 TP_AXIS = "tp"
 
@@ -149,6 +151,32 @@ def make_mesh(axis_names: Sequence[str], shape: Sequence[int],
     if coords is None:
         return None
     return ProcessMesh(names, shape, coords, formed)
+
+
+def shard_tree(tree, specs, mesh: Optional[ProcessMesh]):
+    """This rank's block of every leaf of a full tree, as new tensors
+    (JAX places a full tree by ``NamedSharding``).  ``specs`` has the
+    tree's nesting and holds, for each leaf, the mesh axis each leading
+    dimension splits over, in order, or None (a ``PartitionSpec`` as a
+    tuple; missing trailing entries are None, and a tuple of names splits
+    a dimension over those axes jointly, the first major).  ``mesh=None``
+    copies the tree whole."""
+    def take(x, spec):
+        if mesh is not None:
+            for dim, axes in enumerate(spec):
+                if axes is None:
+                    continue
+                axes = (axes,) if isinstance(axes, str) else tuple(axes)
+                n, i = 1, 0
+                for a in axes:
+                    n, i = n * mesh.size(a), i * mesh.size(a) + mesh.index(a)
+                if x.shape[dim] % n:
+                    raise ValueError(f"dimension {dim} of size "
+                                     f"{x.shape[dim]} does not split over "
+                                     f"{n} ranks of {axes}")
+                x = x.chunk(n, dim=dim)[i]
+        return x.clone()
+    return tree_map(take, tree, specs)
 
 
 def serving_mesh(n: int, timeout_s: Optional[float] = None

@@ -23,12 +23,23 @@ from .models.gpt import GPTConfig, param_shapes
 from .models.resnet import BatchNorm
 
 
-def params_from_jax(tree: Dict, cfg: GPTConfig, device="cpu") -> Dict:
-    """f32 tensors on ``device`` with the same nesting as ``tree``.  A
-    rank of a (dp, sp, tp) mesh takes its slices of the result with
-    ``parallel.threed.shard_params``, as JAX's ``shard_params`` places the
-    full tree on the mesh."""
-    want = param_shapes(cfg)
+def params_from_jax(tree: Dict, cfg, device="cpu") -> Dict:
+    """f32 tensors on ``device`` with the same nesting as ``tree``, a GPT
+    (``cfg`` a ``GPTConfig``) or a MoE-GPT (a
+    ``parallel.moe_gpt.MoEGPTConfig``: each MoE layer holds ``moe:
+    {router, wi, wo}`` in place of ``wi``/``wm``).  A rank of a (dp, sp,
+    tp) mesh takes its slices of the result with
+    ``parallel.threed.shard_params``, a MoE-GPT rank its experts with
+    ``parallel.moe_gpt.shard_params``, as JAX's ``shard_params`` places
+    the full tree on the mesh.  A pipeline rank's tree is the result
+    stacked (``parallel.pipeline.stack_layers``), put in the interleaved
+    order (``interleave_params``) and sharded (``shard_params``), as
+    JAX's ``init_gpt_pp`` builds it."""
+    if isinstance(cfg, GPTConfig):
+        want = param_shapes(cfg)
+    else:
+        from .parallel.moe_gpt import param_shapes as moe_gpt_shapes
+        want = moe_gpt_shapes(cfg)
 
     def copy(path, node, shape):
         if isinstance(shape, dict):

@@ -273,16 +273,23 @@ def _dense_ffn(layer, h, cfg: GPTConfig, tp_group=None):
 
 
 def _layer_finish(layer, x, o, cfg: GPTConfig, remat_ffn: bool = False,
-                  tp_group=None):
+                  tp_group=None, ffn=None):
     """Attention output projection + residual + FFN; with ``remat_ffn``
-    the norm + FFN sub-block is recomputed in the backward."""
+    the norm + FFN sub-block is recomputed in the backward.
+
+    ``ffn(layer, h) -> delta`` swaps the dense MLP for another FFN (the
+    switch-MoE of ``parallel.moe_gpt``) on the post-norm activations; the
+    residual add stays here, so every GPT variant keeps the same block."""
     o = torch.einsum("bthk,hkd->btd", o, layer["wo"].to(cfg.dtype))
     if tp_group is not None:
         o = reduce_from_group(o, tp_group)
     x = x + o
 
     def norm_ffn(x):
-        return _dense_ffn(layer, rms_norm(x, layer["ln2"]), cfg, tp_group)
+        h = rms_norm(x, layer["ln2"])
+        if ffn is not None:
+            return ffn(layer, h)
+        return _dense_ffn(layer, h, cfg, tp_group)
 
     if remat_ffn:
         norm_ffn = _checkpoint(norm_ffn)
@@ -329,7 +336,7 @@ def _checkpoint(fn):
 def apply_layer(layer, x, cfg: GPTConfig, *, attn: str = "dense",
                 pos=None, remat_ffn: bool = False,
                 remat_around_attn: bool = False, tp_group=None,
-                sp_group=None):
+                sp_group=None, ffn=None):
     """One transformer block on (this rank's) ``x`` [B, T, D]; ``pos``
     [T] the GLOBAL token positions, which a sequence-sharded RoPE model
     must give (default arange, the unsharded case).
@@ -339,7 +346,7 @@ def apply_layer(layer, x, cfg: GPTConfig, *, attn: str = "dense",
     output-projection + FFN tail each sit in their own checkpoint region
     while the attention call stays OUTSIDE every region, so its residuals
     (q, compact k/v, out, lse) are saved and the backward never re-runs
-    the attention forward."""
+    the attention forward.  ``ffn``: see :func:`_layer_finish`."""
     if pos is None:
         if cfg.rope and sp_group is not None:
             raise ValueError("RoPE under sequence parallelism needs "
@@ -350,7 +357,7 @@ def apply_layer(layer, x, cfg: GPTConfig, *, attn: str = "dense",
         return _layer_qkv(layer, x, cfg, pos=pos, tp_group=tp_group)
 
     def finish(layer, x, o):
-        return _layer_finish(layer, x, o, cfg, remat_ffn, tp_group)
+        return _layer_finish(layer, x, o, cfg, remat_ffn, tp_group, ffn)
 
     if remat_around_attn:
         qkv_fn, finish = _checkpoint(qkv_fn), _checkpoint(finish)
@@ -367,6 +374,16 @@ def _global_positions(T: int, sp_group, device):
     rank-order concatenation, offset by rank x T_local under sp."""
     offset = dist.get_rank(sp_group) * T if sp_group is not None else 0
     return offset + torch.arange(T, device=device)
+
+
+def auto_attn(tokens, sp_group=None) -> str:
+    """The attention mode ``attn="auto"`` stands for, from the tokens'
+    device: under ``sp_group`` ring_flash on a CUDA tensor and ring on a
+    CPU one, else flash (K1-K4) on a CUDA tensor and dense on a CPU one."""
+    cuda = tokens.device.type == "cuda"
+    if sp_group is not None:
+        return "ring_flash" if cuda else "ring"
+    return "flash" if cuda else "dense"
 
 
 def forward_features(params, tokens, cfg: GPTConfig, attn: str = "auto",
@@ -390,12 +407,8 @@ def forward_features(params, tokens, cfg: GPTConfig, attn: str = "auto",
     layer) | "ffn" | "attn" (see :func:`apply_layer`)."""
     if remat not in _REMAT_MODES:
         raise ValueError(f"unknown remat mode {remat!r}")
-    cuda = tokens.device.type == "cuda"
     if attn == "auto":
-        if sp_group is not None:
-            attn = "ring_flash" if cuda else "ring"
-        else:
-            attn = "flash" if cuda else "dense"
+        attn = auto_attn(tokens, sp_group)
     T = tokens.shape[1]
     pos = _global_positions(T, sp_group, tokens.device)
     x = embed(params, tokens, pos[None], cfg)
